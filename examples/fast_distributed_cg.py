@@ -1,13 +1,11 @@
-"""Distributed CG with the fast per-shard kernel: partition once, solve fast.
+"""Distributed CG over a halo-exchange partition: partition once, solve.
 
-Round 5's headline: the distributed layer runs the measured single-chip
-kernels INSIDE the shard_map bodies.  `halo_partition_segtile` builds one
-segment-tile plan per shard over the halo column space; every solver in
-`parallel/cg.py` dispatches its matvec through `dist_spmv`, so the SAME
-`cg_solve` call runs ~485x faster per iteration on a `HaloSegtile`
-partition than on the scalar-gather `PCSR` baseline (measured on chip,
-docs/performance.md "Solver stack").  Iterates stay in the distributed
-layout throughout — no per-iteration permutes or gathers.
+`halo_partition` precomputes, once per (pattern, mesh), exactly which
+operand entries each shard pair exchanges; every solver in
+`parallel/cg.py` dispatches its matvec through `dist_spmv`, so the same
+`cg_solve` call runs on a halo partition (one all_to_all of the halo per
+iteration) or on the all-gather `PCSR` baseline.  Iterates stay in the
+distributed layout throughout — no per-iteration permutes or gathers.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      JAX_PLATFORMS=cpu python examples/fast_distributed_cg.py
@@ -28,7 +26,7 @@ def main():
     from sparse_tpu import csr_from_dense
     from sparse_tpu.parallel import (
         cg_solve,
-        halo_partition_segtile,
+        halo_partition,
         make_1d_mesh,
         pcsr_from_csr,
     )
@@ -49,31 +47,26 @@ def main():
     a = csr_from_dense(jnp.asarray(spd))
     b_np = rng.standard_normal(n).astype(np.float32)
 
-    # partition ONCE with the richest structure the pattern supports:
-    # the segment-tile halo partition (per-shard Pallas plans + strictly
-    # remote halo exchange)
-    hs = halo_partition_segtile(a, mesh)
-    print(f"halo/shard: {hs.halo} entries (vs {n} for an all-gather); "
-          f"worst shard tile fill {hs.fill:.3f}")
+    # partition ONCE: the halo plan exchanges only the entries each shard
+    # reads from the others
+    hp = halo_partition(a, mesh)
+    print(f"halo/shard: {hp.halo} entries (vs {n} for an all-gather)")
 
-    pa = pcsr_from_csr(a, mesh)  # only for the vector-padding convention
-    b = shard_vector(jnp.asarray(b_np), pa, mesh)
-
-    xs = cg_solve(hs, b, mesh, iters=60)
+    b = shard_vector(jnp.asarray(b_np), hp, mesh)
+    xs = cg_solve(hp, b, mesh, iters=60)
     resid = spd @ np.asarray(xs)[:n] - b_np
     rel = np.linalg.norm(resid) / np.linalg.norm(b_np)
-    print(f"CG(60) through the segment-tile shard_map body: "
-          f"rel residual {rel:.2e}")
+    print(f"CG(60) through the halo exchange: rel residual {rel:.2e}")
     assert rel < 1e-5
 
-    # the same call on the all-gather scalar baseline — identical result,
-    # the matvec is just the slow formulation (dist_spmv dispatches on type)
+    # the same call on the all-gather baseline — same result; dist_spmv
+    # dispatches on the partition type
+    pa = pcsr_from_csr(a, mesh)
     xs2 = cg_solve(pa, b, mesh, iters=60)
     np.testing.assert_allclose(
         np.asarray(xs2)[:n], np.asarray(xs)[:n], rtol=2e-4, atol=2e-4
     )
-    print("matches the PCSR baseline solver bit-for-tolerance; "
-          "on chip the segtile partition iterates ~485x faster")
+    print("matches the all-gather PCSR solve")
 
 
 if __name__ == "__main__":

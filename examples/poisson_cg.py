@@ -52,8 +52,8 @@ def main():
     bv = shard_vector(jnp.asarray(b), pa, mesh)
 
     # preconditioner ladder at a fixed 60-iteration budget: elementwise
-    # Jacobi, 4x4 block-Jacobi (batched MXU inverses), and a degree-6
-    # Chebyshev polynomial (pure matvecs, the TPU-native choice)
+    # Jacobi, 4x4 block-Jacobi (batched inverses), and a degree-6
+    # Chebyshev polynomial (pure matvecs)
     from sparse_tpu import block_jacobi_prepare
     from sparse_tpu.parallel import chebyshev_preconditioner, estimate_lmax
 

@@ -1,13 +1,11 @@
-"""BELL: blocked-ELL — the TPU speed-of-light storage for block-sparse SpMV.
+"""BELL: blocked-ELL storage for block-sparse SpMV/SpMM.
 
 Where BSR keeps a compressed list of blocks (``formats/bsr.py``), BELL lays
 blocks out *pre-windowed* per block row: ``blocks[r, l]`` is the l-th stored
 block of block row ``r`` (padded with zero blocks), with its block-column id
 in ``cols[r, l]``.  SpMV/SpMM then touch the matrix purely by streaming —
 no gather on the matrix side at all; the only gather is the operand chunk
-``v[cols]`` at ``bsz``-granularity, which amortizes TPU per-gather cost.
-Measured on v5e this removes the materialized window intermediate that keeps
-the BSR fast path at ~1/3 of streaming bandwidth.
+``v[cols]`` at ``bsz`` granularity.
 
 No reference counterpart (the reference's only block format is BSR,
 blocked_square_regular.fut:179-183); semantics of ``bell_smvm`` match
@@ -34,6 +32,7 @@ __all__ = [
     "bell_from_csr",
     "bell_smvm",
     "bell_spmm",
+    "bell_spmm_xla",
     "bell_todense",
 ]
 
@@ -104,22 +103,12 @@ def bell_from_bsr(a: BSR, Lb: int | None = None) -> BELL:
 
 def bell_from_csr(a, bsz: int, Lb: int | None = None) -> BELL:
     """Re-block a CSR into blocked-ELL (eager).  Fills explicit zeros inside
-    touched blocks; worthwhile whenever the pattern has block locality."""
-    from ..formats.bsr import bsr_compact, bsr_from_coo
-    from ..formats.csr import csr_to_coo
+    touched blocks; worthwhile whenever the pattern has block locality.
+    Re-blocks on the host at the exact block count (a device assembly
+    would reserve one bsz x bsz block per stored entry)."""
+    from ..formats.bsr import csr_to_bsr
 
-    return bell_from_bsr(bsr_compact(bsr_from_coo(csr_to_coo(a), bsz)), Lb=Lb)
-
-
-#: Fitted per-stored-block wall of :func:`bell_smvm` at bsz=32, k=1 on the
-#: v5e: measured 5.2 ms / 78.1k blocks at the bench size = ~67 ns per block
-#: of gather-index + (32, 32) x (32,) contraction issue, pipelined with the
-#: block stream.  Feeds utils.stats.nnz_roofline's issue_s floor (the
-#: kernel's 332 MB of traffic alone would take 1.6 ms at the 207 GB/s
-#: ceiling — the contraction issue rate, not traffic, is binding).  Fitted,
-#: not first-principles: falsifiable at other block counts via the suite's
-#: frac_of_plan_ceiling row.
-BELL_SPMV_NS_PER_BLOCK = 67.0
+    return bell_from_bsr(csr_to_bsr(a, bsz), Lb=Lb)
 
 
 def bell_smvm_hbm_bytes(a: BELL) -> int:
@@ -132,22 +121,7 @@ def bell_smvm_hbm_bytes(a: BELL) -> int:
 
 def bell_smvm(a: BELL, v: jax.Array) -> jax.Array:
     """Scatter-free, matrix-gather-free SpMV: stream blocks, gather operand
-    chunks, contract on the VPU.
-
-    This is the single production BELL SpMV path.  Measured bound on v5e at
-    bsz=32 (honest jit-argument protocol, bench size): ~64 GB/s min-traffic
-    effective — ~30% of the streaming ceiling.  The bound is the fitted
-    per-block contraction-issue wall (``BELL_SPMV_NS_PER_BLOCK``, ~67 ns
-    per stored block: bsz-wide VPU issues with k=1 amortize nothing), not
-    traffic — the nnz/s roofline model reports the resulting structural
-    fraction machine-checkably (suite ``bell_spmv_frac_of_nnz_roofline``).
-    Two alternatives were built, measured, and deleted per the
-    losing-kernel policy (docs/performance.md): a Pallas SpMV kernel
-    (DMA-latency-bound at 37 GB/s — rt*Lb tiny 128 B chunk DMAs/step) and a
-    pre-transposed prepare split (61.4 GB/s — no better than this path).
-    Unstructured SpMV at higher rates goes through the CSR segment-tile
-    kernel (ops/pallas_csr.py); SpMM amortizes the block stream over k
-    columns and reaches 83-94% of ceiling (ops/pallas_bell.py)."""
+    chunks, contract each block with its chunk (plain XLA)."""
     v = jnp.asarray(v)
     if v.shape != (a.n,):
         raise ValueError(f"bell_smvm: vector shape {v.shape} != ({a.n},)")
@@ -162,20 +136,32 @@ def bell_smvm(a: BELL, v: jax.Array) -> jax.Array:
     return out.reshape(a.n).astype(out_dtype)
 
 
-def bell_spmm(a: BELL, b: jax.Array, *, prefer_pallas: bool | None = None,
-              plan=None, compute_dtype=None, precision=None) -> jax.Array:
-    """Blocked-ELL SpMM: batched (bsz x bsz) @ (bsz x k) on the MXU.
+def _spmm_route(a: BELL, k: int, stream_dtype,
+                platform_name: str | None = None) -> str:
+    """``"triton"`` when the platform runs the blocked-ELL kernel and the
+    product is in its range (ops/pallas_bell.kernel_eligible), else
+    ``"xla"``."""
+    from ..backend import has_kernel
 
-    On TPU backends this dispatches to a Pallas kernel by default: with a
-    ``plan`` from ``ops.pallas_bell.build_banded_plan`` (matrices whose rows
-    store consecutive block columns — bands/FEM), the dense-tile banded
-    kernel (one wide MXU matmul + one window DMA per row tile, streaming-
-    bound); otherwise the fused kernel (one block row per step, no
-    materialized gather intermediate — the XLA path needs an (nb, Lb, bsz,
-    k) temporary that caps its feasible size).  ``prefer_pallas=False``
-    forces the XLA gather-einsum path.  ``compute_dtype=jnp.bfloat16``
-    streams matrix+operand at half width with f32 accumulation (banded
-    kernel only)."""
+    if not has_kernel("bell_spmm", platform_name):
+        return "xla"
+    from ..ops.pallas_bell import kernel_eligible
+
+    return "triton" if kernel_eligible(a, k, stream_dtype) else "xla"
+
+
+def bell_spmm(a: BELL, b: jax.Array, *, compute_dtype=None,
+              precision=None) -> jax.Array:
+    """Blocked-ELL SpMM: batched (bsz x bsz) @ (bsz x k).
+
+    On a platform whose capability table (``sparse_tpu.backend``) lists the
+    ``bell_spmm`` kernel, products at bsz 16 or 32 with a float32 or
+    bfloat16 stream run the Triton kernel (ops/pallas_bell.py), which
+    never materializes the gathered operand panels; everything else takes
+    the XLA gather-einsum :func:`bell_spmm_xla`.  ``compute_dtype=jnp.bfloat16`` streams
+    matrix and operand at half width with accumulation in the output
+    dtype.  float32 contractions default to full precision
+    (utils/precision.py)."""
     b = jnp.asarray(b)
     if b.ndim != 2 or b.shape[0] != a.n:
         raise ValueError(f"bell_spmm: operand shape {b.shape} != ({a.n}, k)")
@@ -183,41 +169,24 @@ def bell_spmm(a: BELL, b: jax.Array, *, prefer_pallas: bool | None = None,
     out_dtype = jnp.result_type(a.dtype, b.dtype)
     if a.n == 0 or a.Lb == 0 or k == 0:
         return jnp.zeros((a.n, k), out_dtype)
-    if prefer_pallas is None:
-        prefer_pallas = jax.default_backend() == "tpu"
-    if prefer_pallas:
-        if plan is not None:
-            from ..ops.pallas_bell import (
-                BandedKit,
-                BandedKitT,
-                bell_spmm_pallas_banded,
-                bell_spmm_pallas_banded_t,
-            )
+    if _spmm_route(a, k, compute_dtype or out_dtype) == "triton":
+        from ..ops.pallas_bell import bell_spmm_triton
 
-            if isinstance(plan, BandedKitT):
-                # small-k transposed kernel (k < 128 stops paying 128-lane
-                # padding); this one-shot wrapper pays two n*k transposes —
-                # iterative callers should chain bell_spmm_pallas_banded_t
-                # in transposed space directly
-                ct = bell_spmm_pallas_banded_t(
-                    a, b.T, plan, precision=precision
-                )
-                return ct.T.astype(out_dtype)
-            if isinstance(plan, BandedKit):
-                return bell_spmm_pallas_banded(
-                    a, b, plan.plan, tiles=plan.tiles,
-                    compute_dtype=plan.tiles.dtype, precision=precision,
-                )
-            return bell_spmm_pallas_banded(
-                a, b, plan, compute_dtype=compute_dtype, precision=precision,
-            )
-        from ..ops.pallas_bell import bell_spmm_pallas_fused
+        return bell_spmm_triton(a, b, compute_dtype=compute_dtype,
+                                precision=precision)
+    return bell_spmm_xla(a, b, compute_dtype=compute_dtype,
+                         precision=precision)
 
-        return bell_spmm_pallas_fused(
-            a, b, compute_dtype=compute_dtype, precision=precision
-        )
-    # XLA fallback honors compute_dtype the same way the kernels do: stream
-    # both operands at the reduced width, accumulate in out_dtype.
+
+def bell_spmm_xla(a: BELL, b: jax.Array, *, compute_dtype=None,
+                  precision=None) -> jax.Array:
+    """The plain XLA formulation of :func:`bell_spmm` on every platform:
+    gather the ``(nb, Lb, bsz, k)`` operand panels, then one einsum."""
+    b = jnp.asarray(b)
+    k = b.shape[1]
+    out_dtype = jnp.result_type(a.dtype, b.dtype)
+    if a.n == 0 or a.Lb == 0 or k == 0:
+        return jnp.zeros((a.n, k), out_dtype)
     blocks = a.blocks if compute_dtype is None else a.blocks.astype(compute_dtype)
     panels = b.reshape(a.nb, a.bsz, k)[a.cols.reshape(-1)].reshape(
         a.nb, a.Lb, a.bsz, k

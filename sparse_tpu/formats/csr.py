@@ -1,6 +1,6 @@
 """CSR / CSC compressed sparse matrices (the central format).
 
-TPU-native re-design of the reference's ``mk_compressed`` functor
+A re-design of the reference's ``mk_compressed`` functor
 (compressed.fut:61-332):
 
 * The representation is a pytree dataclass with **static stored capacity**
@@ -13,8 +13,8 @@ TPU-native re-design of the reference's ``mk_compressed`` functor
   any gather-multiply contributes zero and any scatter adds zero.
 * CSC is the same arrays reinterpreted: ``transpose`` is O(1) and free of
   data movement, exactly like the reference's duality (compressed.fut:185-226).
-* ``smvm`` lowers to gather + segment-sum (the XLA reference path); the hot
-  Pallas row-binned kernels live in ``sparse_tpu.ops``.
+* ``smvm`` lowers to gather + segment-sum (the XLA reference path); the
+  row-binned SpMV and the one-call dispatch live in ``sparse_tpu.ops``.
 
 Semantics preserved from the reference:
   construction sums duplicate triples (compressed.fut:154-160); ``+``/``-``
@@ -315,9 +315,9 @@ def csr_smvm(a: CSR, v: jax.Array) -> jax.Array:
     """Sparse matrix-vector multiply: gather + segment-sum.
 
     XLA reference path for the reference's ``smvm``
-    (``expand_outer_reduce``-based, compressed.fut:134-146).  The Pallas
-    row-binned kernel in ``sparse_tpu.ops.spmv`` is the fast path; this one is
-    the semantic baseline and the small-size fallback.
+    (``expand_outer_reduce``-based, compressed.fut:134-146).  The row-binned
+    path in ``sparse_tpu.ops.spmv`` (``smvm_prepare``) is the production
+    path; this one is the semantic baseline and the small-size fallback.
     """
     n, m = a.shape
     v = jnp.asarray(v)

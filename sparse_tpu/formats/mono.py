@@ -1,7 +1,7 @@
 """Mono sparse matrices: at most one stored element per row (MSR) or per
 column (MSC).
 
-TPU-native re-design of the reference's ``mk_mono`` functor (mono.fut:63-209).
+A re-design of the reference's ``mk_mono`` functor (mono.fut:63-209).
 The representation is *regular* (capacity = n, one slot per row), so unlike
 CSR there is no padding protocol: empty rows hold ``(col 0, val 0)``
 (mono.fut:119-129).  MSR SpMV is a pure gather-multiply (one FMA per row, no

@@ -1,6 +1,6 @@
 """Packed trapezoidal matrices (lower/upper, possibly non-square).
 
-TPU-native re-design of the reference's ``mk_trapezoidal`` functor
+A re-design of the reference's ``mk_trapezoidal`` functor
 (trapezoidal.fut:220-235).  An ``n x m`` lower trapezoidal matrix (zero above
 the diagonal) stores its possibly-nonzero elements packed row-major:
 
@@ -16,7 +16,7 @@ trapezoidal.fut:175-184), making ``transpose`` O(1) — flip the flag
 
 As with the triangular format, ``smm`` departs from the reference's
 ``expand_outer_reduce`` of packed gathers (trapezoidal.fut:133-145): we
-densify, run one MXU matmul, and re-pack.  Exact — the product of two lower
+densify, run one dense matmul, and re-pack.  Exact — the product of two lower
 (upper) trapezoids is a lower (upper) trapezoid.  Above ``_TRAP_DENSE_MAX``
 on any dimension, a blocked kernel multiplies (B, B) tiles gathered straight
 from packed storage instead, so peak memory stays at packed size (the same
@@ -247,7 +247,7 @@ def _check_same(a: Trapezoidal, b: Trapezoidal, op: str) -> None:
 
 
 # same size policy as tri_smm (triangular.py): below the threshold one dense
-# MXU matmul wins outright; above it the blocked packed path keeps the packed
+# matmul wins outright; above it the blocked packed path keeps the packed
 # format's memory edge.  The int32 cap bounds every packed index computed in
 # the blocked kernel.
 _TRAP_DENSE_MAX = 4096
@@ -274,7 +274,7 @@ def _trap_smm_blocked(ad: jax.Array, bd: jax.Array, n: int, m: int, k: int,
     """Lower-packed (n,m) x lower-packed (m,k) -> lower-packed (n,k) without
     densifying: C_ij = sum_{t=j..min(i, mb-1)} A_it @ B_tj over B-sized
     blocks.  Peak memory is the packed output (as block tiles) + O(B^2);
-    every multiply is a (B, B) MXU matmul."""
+    every multiply is a (B, B) dense matmul."""
     nb, mb, kb = -(-n // B), -(-m // B), -(-k // B)
     kkb = min(nb, kb)
     eb = kkb * (kkb + 1) // 2
@@ -324,11 +324,11 @@ def trap_smm(a: Trapezoidal, b: Trapezoidal) -> Trapezoidal:
     """Trapezoid x trapezoid multiply: (n,m) @ (m,k) -> (n,k) (reference
     ``smm``, trapezoidal.fut:133-145; upper duality at :231).
 
-    For small sizes: densify -> MXU matmul -> re-pack (exact because
+    For small sizes: densify -> dense matmul -> re-pack (exact because
     same-orientation trapezoid products stay trapezoidal).  Above
     ``_TRAP_DENSE_MAX`` on any dimension, a blocked kernel multiplies
     (512, 512) tiles gathered straight from packed storage, so the packed
-    format's memory edge survives at scale; both paths feed the MXU.
+    format's memory edge survives at scale; both paths are dense matmuls.
     """
     if a.lower != b.lower:
         raise ValueError("trap_smm: cannot mix lower and upper trapezoids")

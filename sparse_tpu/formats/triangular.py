@@ -1,6 +1,6 @@
 """Packed triangular matrices (lower/upper).
 
-TPU-native re-design of the reference's ``mk_triangular`` functor
+A re-design of the reference's ``mk_triangular`` functor
 (triangular.fut:195-208).  An ``n x n`` triangular matrix stores exactly the
 ``n(n+1)/2`` possibly-nonzero elements in a packed 1-D ``data`` vector.
 
@@ -13,17 +13,16 @@ Layout (matches the reference's dual ranking scheme, triangular.fut:138-165):
   ``transpose`` is O(1) — just flip the orientation flag, zero data movement
   (triangular.fut:199, 203).
 
-TPU-first departure: the reference computes ``smm`` with a per-output-slot
-``expand_outer_reduce`` of packed gathers (triangular.fut:104-112).  Gathers
-are the slowest primitive on TPU, so ``tri_smm`` never does per-element
-gathers.  For n <= 4096 it densifies both operands, runs one dense matmul
-on the MXU, and re-packs (exact: same-orientation triangle products stay
+Departure: the reference computes ``smm`` with a per-output-slot
+``expand_outer_reduce`` of packed gathers (triangular.fut:104-112).
+``tri_smm`` never does per-element gathers.  For n <= 4096 it densifies
+both operands, runs one dense matmul, and re-packs (exact: same-orientation triangle products stay
 triangular) — a 2x transient memory cost that is the right trade at sizes
 where the dense square still fits comfortably.  Above that,
 ``_tri_smm_blocked`` multiplies (block, block) tiles sliced straight from
 packed storage under a ``fori_loop``, skipping the structurally-zero
 k-range per tile pair, so the packed format's 2x memory edge survives at
-scale and the hot loop is still systolic-array FLOPs.
+scale and the hot loop is still dense matmul FLOPs.
 
 All values are pytree dataclasses; every op is jit-compatible (shapes are
 static functions of ``n``).
@@ -247,7 +246,7 @@ def _check_same(a: Triangular, b: Triangular, op: str) -> None:
 # -- matmul --------------------------------------------------------------------
 
 
-# below this size, densify -> one MXU matmul wins outright (2x transient
+# below this size, densify -> one dense matmul wins outright (2x transient
 # memory, zero bookkeeping); above it the blocked packed path keeps the
 # packed format's memory edge.  46340 caps the int32 packed-index math
 # (n(n+1)/2 < 2^31), same guard as BSR's flattened block coords.
@@ -273,7 +272,7 @@ def _tri_smm_blocked(ad: jax.Array, bd: jax.Array, n: int, out_dtype,
     """Packed-lower x packed-lower -> packed-lower without densifying:
     C_ij = sum_{k=j..i} A_ik @ B_kj over B-sized blocks.  Peak memory is the
     packed output (as block tiles) + O(B^2), preserving the format's 2x
-    edge; every multiply is a (B, B) MXU matmul."""
+    edge; every multiply is a (B, B) dense matmul."""
     nb = -(-n // B)
     npairs = nb * (nb + 1) // 2
     out = jnp.zeros((npairs, B, B), out_dtype)
@@ -312,11 +311,11 @@ def tri_smm(a: Triangular, b: Triangular) -> Triangular:
     """Triangular x triangular matrix multiply (reference ``smm``,
     triangular.fut:104-112 and the upper-via-transpose duality at :204).
 
-    TPU-first algorithm: for n <= 4096, densify -> MXU matmul -> re-pack
+    Algorithm: for n <= 4096, densify -> dense matmul -> re-pack
     (exact: the product of two same-orientation triangles has the same
     orientation).  Larger matrices switch to a blocked packed kernel that
     never materializes the dense square, so the packed format's 2x memory
-    edge survives at scale; both paths feed the MXU.
+    edge survives at scale; both paths are dense matmuls.
     """
     _check_same(a, b, "smm")
     out_dtype = jnp.result_type(a.dtype, b.dtype)

@@ -1,7 +1,7 @@
 """Dense within-block linear algebra: LU with partial pivoting, triangular
 solves, and permutation vectors.
 
-TPU-native equivalent of the external ``linalg``/``lup``/``perm`` packages the
+JAX equivalent of the external ``linalg``/``lup``/``perm`` packages the
 reference's BSR module builds on (blocked_square_regular.fut:9-11, 169-172).
 Everything here is jit-compatible with static shapes; the factorization loop
 is a ``lax.fori_loop`` over columns so one compiled kernel serves any batch of

@@ -1,7 +1,7 @@
 // Native helpers for host-side plan construction (symbolic passes).
 //
-// The once-per-pattern symbolic passes (segment-tile layout, SpGEMM product
-// schedules) are dominated by argsorts of fused integer keys; NumPy's
+// The once-per-pattern symbolic passes (SpGEMM product schedules, RCM) are
+// dominated by argsorts of fused integer keys; NumPy's
 // comparison sort runs at ~1 M keys/s on the small deployment hosts this
 // library targets.  This stable LSD radix argsort is ~10x faster and keeps
 // plan-build latency proportionate to the transfer/compile costs around it.
@@ -60,201 +60,6 @@ long long radix_argsort_u64(const uint64_t* keys, long long n,
 }  // extern "C"
 
 #include <algorithm>
-#include <unordered_map>
-
-extern "C" {
-
-// Segment-tile layout core (the host symbolic pass of
-// ops/pallas_csr.py:build_seg_tiles), one O(nnz) sweep instead of global
-// sorts + ~30 full-array NumPy passes.  Per R-row block (R = rows, a power
-// of two; the original kernel uses 8, the 32-row super-block kernel 32):
-// window/lane/sub decomposition anchored at the block's first lane-aligned
-// column, spill tiers per (win, row, lane) collision, tiles numbered in
-// (block, win, tier) order — bit-identical to the NumPy path (tests pin
-// this; at R=8 also bit-identical to the pre-parameterized function).
-//
-// Outputs: pos[e] = tile*(R*128) + (row&(R-1))*128 + lane (one unique slot
-// per entry), sub[e] in [0, wsub); per-tile seg_of (window base sublane)
-// and t_rb (output row block).  Tile buffers must hold >= nnz entries.
-// Returns the tile count, or -1 on bad arguments.
-long long seg_tile_layout_r(const long long* indptr, long long n,
-                            const long long* cols, long long wsub,
-                            long long rows,
-                            long long* pos, signed char* sub,
-                            long long* seg_of, long long* t_rb) {
-  if (n < 0 || wsub <= 0 || wsub > 127) return -1;
-  if (rows <= 0 || (rows & (rows - 1)) != 0 || rows > 256) return -1;
-  const long long R = rows;
-  const long long slots = R * 128;
-  long long n_tiles = 0;
-  std::unordered_map<long long, int> tier_count;   // (win, ri, lane) -> seen
-  std::unordered_map<long long, long long> tile_of_key;  // (win, tier) -> tile
-  std::vector<long long> keys;  // unique (win, tier) keys of this block
-  std::vector<long long> ewin, esub;  // per-entry win / tier-resolved data
-
-  for (long long rb = 0; rb * R < n; ++rb) {
-    const long long r0 = rb * R;
-    const long long r1 = std::min(r0 + R, n);
-    const long long s = indptr[r0], e = indptr[r1];
-    if (s >= e) continue;
-    // anchor: block's minimum column, lane-aligned (cols ascending per row,
-    // so each row's first entry is its minimum)
-    long long minc = cols[indptr[r0]];
-    for (long long r = r0; r < r1; ++r)
-      if (indptr[r] < indptr[r + 1]) minc = std::min(minc, cols[indptr[r]]);
-    const long long anchor = minc >> 7;
-
-    tier_count.clear();
-    tile_of_key.clear();
-    keys.clear();
-    ewin.clear();
-    esub.clear();
-    // pass 1: tiers + unique (win, tier) keys
-    for (long long r = r0; r < r1; ++r) {
-      const long long ri = r & (R - 1);
-      for (long long p = indptr[r]; p < indptr[r + 1]; ++p) {
-        const long long c = cols[p];
-        const long long q = c >> 7;
-        const long long win = (q - anchor) / wsub;
-        const long long lane = c & 127;
-        const long long ck = win * slots + ri * 128 + lane;
-        const int tier = tier_count[ck]++;
-        const long long tk = (win << 24) + tier;  // tier < wsub * dup-count
-        if (tile_of_key.emplace(tk, -1).second) keys.push_back(tk);
-        ewin.push_back(tk);
-        esub.push_back(q - anchor - win * wsub);
-      }
-    }
-    std::sort(keys.begin(), keys.end());
-    for (long long k : keys) {
-      tile_of_key[k] = n_tiles;
-      seg_of[n_tiles] = anchor + (k >> 24) * wsub;
-      t_rb[n_tiles] = rb;
-      ++n_tiles;
-    }
-    // pass 2: slot positions
-    long long i = 0;
-    for (long long r = r0; r < r1; ++r) {
-      const long long ri = r & (R - 1);
-      for (long long p = indptr[r]; p < indptr[r + 1]; ++p, ++i) {
-        const long long c = cols[p];
-        const long long tile = tile_of_key[ewin[i]];
-        pos[p] = tile * slots + ri * 128 + (c & 127);
-        sub[p] = static_cast<signed char>(esub[i]);
-      }
-    }
-  }
-  return n_tiles;
-}
-
-// Backward-compatible 8-row entry point (kept so the pinned bit-identity
-// tests keep a stable symbol; delegates to the parameterized core).
-long long seg_tile_layout(const long long* indptr, long long n,
-                          const long long* cols, long long wsub,
-                          long long* pos, signed char* sub,
-                          long long* seg_of, long long* t_rb) {
-  return seg_tile_layout_r(indptr, n, cols, wsub, 8, pos, sub, seg_of, t_rb);
-}
-
-// First-fit segment-tile layout: instead of the rigid anchor-partitioned
-// windows of seg_tile_layout_r (where a block whose column span straddles a
-// window boundary pays a second tile, and every (window, spill-tier) pair
-// is its own tile), entries are placed greedily: per R-row block, entries
-// are visited in (column, row) order and land in the FIRST open tile whose
-// window still covers their column (tile base = its first entry's lane-
-// aligned column) and whose (row, lane) slot is free; otherwise a new tile
-// opens.  Measured on the 10M-nnz half-width-1000 band this cuts tiles
-// ~25% vs the rigid layout at wsub=16 (straddle windows merge, spills
-// pool across windows).  Same outputs/contract as seg_tile_layout_r,
-// except within-tile entry order is column-major (callers re-sort by full
-// slot position before the device fill).
-long long seg_tile_layout_ff(const long long* indptr, long long n,
-                             const long long* cols, long long wsub,
-                             long long rows,
-                             long long* pos, signed char* sub,
-                             long long* seg_of, long long* t_rb) {
-  if (n < 0 || wsub <= 0 || wsub > 127) return -1;
-  if (rows <= 0 || (rows & (rows - 1)) != 0 || rows > 256) return -1;
-  const long long R = rows;
-  const long long slots = R * 128;
-  const int words = static_cast<int>(slots / 64);
-  long long n_tiles = 0;
-  std::vector<std::pair<long long, long long>> ents;  // (col<<32|ri, p)
-  std::vector<long long> open_base;   // per open tile: window base sublane
-  std::vector<long long> open_id;     // per open tile: global tile id
-  std::vector<uint64_t> open_bits;    // per open tile: words x u64 bitmap
-
-  for (long long rb = 0; rb * R < n; ++rb) {
-    const long long r0 = rb * R;
-    const long long r1 = std::min(r0 + R, n);
-    if (indptr[r0] >= indptr[r1]) continue;
-    ents.clear();
-    for (long long r = r0; r < r1; ++r) {
-      const long long ri = r & (R - 1);
-      for (long long p = indptr[r]; p < indptr[r + 1]; ++p)
-        ents.emplace_back((cols[p] << 8) | ri, p);
-    }
-    std::sort(ents.begin(), ents.end());
-    open_base.clear();
-    open_id.clear();
-    open_bits.clear();
-    for (const auto& e : ents) {
-      const long long c = e.first >> 8;
-      const long long ri = e.first & 0xff;
-      const long long p = e.second;
-      const long long q = c >> 7;
-      const long long lane = c & 127;
-      const long long slot = ri * 128 + lane;
-      const int w = static_cast<int>(slot >> 6);
-      const uint64_t bit = uint64_t{1} << (slot & 63);
-      long long chosen = -1;
-      for (size_t ti = 0; ti < open_base.size(); ++ti) {
-        if (q - open_base[ti] >= wsub) continue;  // window passed (q >= base)
-        if (open_bits[ti * words + w] & bit) continue;  // slot taken
-        chosen = static_cast<long long>(ti);
-        break;
-      }
-      if (chosen < 0) {
-        chosen = static_cast<long long>(open_base.size());
-        open_base.push_back(q);
-        open_id.push_back(n_tiles);
-        open_bits.resize(open_bits.size() + words, 0);
-        seg_of[n_tiles] = q;
-        t_rb[n_tiles] = rb;
-        ++n_tiles;
-      }
-      open_bits[chosen * words + w] |= bit;
-      pos[p] = open_id[chosen] * slots + slot;
-      sub[p] = static_cast<signed char>(q - open_base[chosen]);
-    }
-  }
-  return n_tiles;
-}
-
-// Stable counting argsort by small integer keys (one count + one placement
-// pass — ~4x fewer array sweeps than the byte-wise radix when keys are
-// already bucket-sized, e.g. segment-tile ids).  Returns 0 on success,
-// nonzero when a key falls outside [0, nbuckets).
-long long counting_argsort_i64(const long long* keys, long long n,
-                               long long nbuckets, long long* idx) {
-  if (n < 0 || nbuckets <= 0 || (n > 0 && (!keys || !idx))) return 1;
-  std::vector<long long> count(static_cast<size_t>(nbuckets) + 1, 0);
-  for (long long i = 0; i < n; ++i) {
-    const long long k = keys[i];
-    if (k < 0 || k >= nbuckets) return 2;
-    ++count[k];
-  }
-  long long at = 0;
-  for (long long b = 0; b < nbuckets; ++b) {
-    const long long c = count[b];
-    count[b] = at;
-    at += c;
-  }
-  for (long long i = 0; i < n; ++i) idx[count[keys[i]]++] = i;
-  return 0;
-}
-
-}  // extern "C"
 
 extern "C" {
 

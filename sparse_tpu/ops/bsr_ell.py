@@ -1,6 +1,6 @@
 """Blocked-ELL fast paths for BSR SpMV / SpMM.
 
-TPU gathers pay a fixed per-element cost, so the way to reach memory-bound
+Gathers pay a per-element cost, so the way to reach memory-bound
 throughput is to make every gathered granule big: at block size ``bsz`` the
 operand gathers move ``bsz``-wide chunks (SpMV) or ``bsz x k`` panels (SpMM)
 and the matrix itself streams as dense blocks — scalar-gather cost drops by
@@ -82,7 +82,7 @@ def bsr_smvm_ell(a: BSR, v: jax.Array, Lb: int) -> jax.Array:
 
 def bsr_spmm_ell(a: BSR, b: jax.Array, Lb: int) -> jax.Array:
     """Scatter-free BSR SpMM (BSR x dense (n, k)): block-panel gathers feed
-    a batched (bsz x bsz) @ (bsz x k) einsum on the MXU."""
+    a batched (bsz x bsz) @ (bsz x k) einsum."""
     b = jnp.asarray(b)
     if b.ndim != 2 or b.shape[0] != a.n:
         raise ValueError(f"bsr_spmm_ell: operand shape {b.shape} != ({a.n}, k)")

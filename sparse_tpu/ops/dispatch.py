@@ -1,24 +1,13 @@
 """One-call production SpMV: prepare once per pattern, apply per value set.
 
-Rounds 2-5 built a ladder of SpMV paths, each measured best on a
-structure class (docs/performance.md):
+:func:`smvm_prepare` runs the (eager, host-side) structure analysis once
+and returns a plan carrier whose :meth:`~SmvmAutoPlan.apply` is
+jit-compatible.  The ladder has two rungs:
 
-| structure | path | chip rate (class fixture) |
-|---|---|---|
-| natural 2x2 blocks (vector FEM) | block-granule segment tiles + block RCM | 0.82-0.87 Gnnz/s |
-| column locality (bands, scalar FEM) | segment tiles (+ scalar RCM if scrambled) | 0.40-1.23 Gnnz/s |
-| bsz >= 8 dense blocks, no locality | BELL block storage | ~64 GB/s equiv |
-| heavy-tailed degrees (webbase) | hub/tail split | 1.36-1.46x the fallback |
-| none of the above | row-binned XLA | 0.015-0.14 Gnnz/s (the wall) |
-
-`csr_smvm_auto` dispatches per call and warns about per-call analysis
-cost; THIS module is the production shape: :func:`smvm_prepare` runs the
-(eager, host-side) structure analysis ONCE and returns a plan carrier
-whose :meth:`~SmvmAutoPlan.apply` is jit-compatible, including any
-reorder composed in (permutes at the ends, iterates welcome to stay in
-permuted space via ``apply_permuted``).  The round-4 verdict's recurring
-defect class — "the measured-best path exists but nothing routes to it"
-— is closed structurally: every path above is reachable from one call.
+| structure | path |
+|---|---|
+| square, fully dense natural blocks at bsz >= 8 | BELL block storage (``formats/bell.py``) |
+| anything else | row-binned XLA SpMV (``ops/spmv.py``) |
 
 No reference counterpart (the reference has exactly one smvm,
 compressed.fut:134-146 — semantics preserved by every path here).
@@ -31,255 +20,95 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..formats.csr import CSR
 
 __all__ = ["SmvmAutoPlan", "smvm_prepare"]
 
+_KINDS = ("bell", "xla")
+
 
 @partial(
     jax.tree_util.register_dataclass,
-    data_fields=["state", "perm", "inv_perm", "value_src"],
+    data_fields=["state"],
     meta_fields=["kind", "shape"],
 )
 @dataclasses.dataclass(frozen=True)
 class SmvmAutoPlan:
     """Prepared SpMV dispatch (from :func:`smvm_prepare`).
 
-    ``kind``: one of ``"blockseg"``, ``"segtile"``, ``"bell"``,
-    ``"hubsplit"``, ``"xla"``.  ``state`` is the path's own plan pytree;
-    ``perm``/``inv_perm`` are the composed symmetric reorder (identity =
-    None); ``value_src`` maps original storage slots to the (reordered)
-    plan entry order when a reorder was composed (:meth:`refresh`).
-    ``apply`` matches ``csr_smvm`` up to float summation order."""
+    ``kind``: ``"bell"`` or ``"xla"``; ``state`` is the path's own plan
+    pytree.  ``apply`` matches ``csr_smvm`` up to float summation order."""
 
     state: tuple
-    perm: jax.Array | None
-    inv_perm: jax.Array | None
     kind: str
     shape: tuple[int, int]
-    value_src: jax.Array | None = None
 
     def refresh(self, data: jax.Array) -> "SmvmAutoPlan":
         """Re-bind the plan to NEW values of the SAME pattern (``data`` =
-        the updated ORIGINAL-order CSR ``.data``) — the Newton /
-        time-stepping idiom; jit-compatible given the plan.
-
-        Supported for ``segtile`` (one gather via ``seg_tiles_refresh``;
-        build with ``smvm_prepare(refreshable=True)``) and ``xla`` (the
-        row-binned plan is value-free).  The blocked rungs (``blockseg``,
-        ``bell``) and ``hubsplit`` re-block values through host layouts —
-        re-run :func:`smvm_prepare` for those (the kernel-level
-        ``block_seg_tiles_refresh`` covers callers who hold the re-blocked
-        values themselves)."""
+        the updated CSR ``.data``) — the Newton / time-stepping idiom;
+        jit-compatible given the plan.  Supported on the ``xla`` rung (its
+        row-binned plan is value-free); the ``bell`` rung re-blocks values
+        through host layouts, so re-run :func:`smvm_prepare` for it."""
+        if self.kind != "xla":
+            raise NotImplementedError(
+                f"SmvmAutoPlan.refresh: the {self.kind!r} rung re-blocks "
+                "values through host layouts — re-run smvm_prepare"
+            )
+        a, plan = self.state
         data = jnp.asarray(data)
-        if self.kind == "segtile":
-            from .pallas_csr import seg_tiles_refresh
-
-            a, plan = self.state
-            d = data[self.value_src] if self.value_src is not None else data
-            a2 = CSR(data=d, indices=a.indices, indptr=a.indptr,
-                     shape=a.shape)
-            return dataclasses.replace(
-                self, state=(a2, seg_tiles_refresh(plan, d)))
-        if self.kind == "xla":
-            a, plan = self.state
-            a2 = CSR(data=data, indices=a.indices, indptr=a.indptr,
-                     shape=a.shape)
-            return dataclasses.replace(self, state=(a2, plan))
-        raise NotImplementedError(
-            f"SmvmAutoPlan.refresh: the {self.kind!r} rung re-blocks values "
-            "through host layouts — re-run smvm_prepare (or use the "
-            "kernel-level refresh with re-blocked values)"
-        )
+        if data.shape != a.data.shape:
+            raise ValueError(
+                f"SmvmAutoPlan.refresh: data shape {data.shape} != the "
+                f"pattern's {a.data.shape}")
+        a2 = CSR(data=data, indices=a.indices, indptr=a.indptr, shape=a.shape)
+        return dataclasses.replace(self, state=(a2, plan))
 
     def apply(self, v: jax.Array) -> jax.Array:
-        """y = A v (original index space; jit-compatible)."""
+        """y = A v (jit-compatible)."""
         v = jnp.asarray(v)
-        if self.perm is not None:
-            if self.kind == "blockseg":
-                # block-granule permutes (gathers at both ends — measured
-                # faster than scatter-unpermute, docs/performance.md r5)
-                vp = v.reshape(-1, 2)[self.perm].reshape(-1)
-                y = self.apply_permuted(vp)
-                return y.reshape(-1, 2)[self.inv_perm].reshape(-1)
-            vp = v[self.perm]
-            y = self.apply_permuted(vp)
-            return y[self.inv_perm]
-        return self.apply_permuted(v)
-
-    def apply_permuted(self, v: jax.Array) -> jax.Array:
-        """y' = (P A P^T) v' — the permute-free hot path for iterative
-        use (identical to :meth:`apply` when no reorder was composed)."""
-        interpret = jax.default_backend() != "tpu"
-        if self.kind == "blockseg":
-            from .pallas_csr_block import bsr_smvm_segtile_block
-
-            ab, plan = self.state
-            return bsr_smvm_segtile_block(ab, v, plan, interpret=interpret)
-        if self.kind == "segtile":
-            from .pallas_csr import csr_smvm_segtile
-
-            a, plan = self.state
-            return csr_smvm_segtile(a, v, plan, interpret=interpret)
         if self.kind == "bell":
             from ..formats.bell import bell_smvm
 
             (b,) = self.state
             return bell_smvm(b, v)
-        if self.kind == "hubsplit":
-            from .hub_split import hub_split_smvm
-
-            (split,) = self.state
-            return hub_split_smvm(
-                split, v, interpret=jax.default_backend() != "tpu")
         from .spmv import csr_smvm_fast
 
         a, plan = self.state
         return csr_smvm_fast(a, v, plan)
 
 
-def smvm_prepare(a: CSR, *, reorder: bool = True,
-                 verbose: bool = False,
-                 prefer: str | None = None,
-                 refreshable: bool = False) -> SmvmAutoPlan:
+def smvm_prepare(a: CSR, *, verbose: bool = False,
+                 prefer: str | None = None) -> SmvmAutoPlan:
     """Eager, host-side structure analysis + plan build (once per
-    pattern; value updates go through :meth:`SmvmAutoPlan.refresh` where
-    supported — pass ``refreshable=True`` — else rebuild).
+    pattern; value updates on the ``xla`` rung go through
+    :meth:`SmvmAutoPlan.refresh`).
 
-    Decision ladder, in measured-preference order (docs/performance.md;
-    thresholds are this chip's measured crossover points):
+    Ladder: a square matrix whose stored pattern is fully dense natural
+    blocks at bsz 32, 16 or 8 -> BELL block storage; otherwise the
+    row-binned XLA path.  ``prefer`` pins a rung by name (``"bell"`` or
+    ``"xla"``), overriding the structure heuristic but not the
+    capability requirement (the bell rung needs a square matrix and a
+    dense block size)."""
+    from ..utils.stats import detect_block_size
 
-    1. square + fully dense natural 2x2 blocks -> block-granule segment
-       tiles over a block-RCM reorder (``reorder=False`` skips the RCM);
-    2. segment-tile fill above the dispatch floor (after scalar RCM when
-       ``reorder`` and it cuts bandwidth) -> scalar segment tiles;
-    3. square + dense natural blocks at bsz >= 8 -> BELL block storage;
-    4. heavy-tailed column degrees (hub strip >= ~8% of entries) ->
-       hub/tail split;
-    5. otherwise -> the row-binned XLA path.
-
-    Host cost at 5-10M nnz is tens of seconds (RCM + tile sweep; the
-    documented prepare-cost table); this is the amortize-over-many-solves
-    entry point, not a one-shot convenience.  ``prefer`` pins a ladder
-    rung by name, overriding its structure HEURISTIC but not its
-    capability/correctness requirements (squareness, index ranges,
-    residency caps) — an override/testing hook; off-TPU backends run any
-    Pallas path in interpret mode.  ``refreshable=True`` retains the
-    value-gather tables so :meth:`SmvmAutoPlan.refresh` re-binds new
-    values without the host pass (segtile/xla rungs)."""
-    from ..utils.stats import csr_block_fill, detect_block_size
-    from .pallas_csr import _MAX_RESIDENT, _MIN_FILL, build_seg_tiles
-    from .reorder import csr_bandwidth
-
+    if prefer is not None and prefer not in _KINDS:
+        raise ValueError(f"smvm_prepare: unknown rung {prefer!r} "
+                         f"(expected one of {_KINDS})")
     n, m = a.shape
     log = (lambda s: print(f"smvm_prepare: {s}")) if verbose else (lambda s: None)
 
-    on_tpu = jax.default_backend() == "tpu"
-
-    def want(kind, cap, struct_fn):
-        """``cap``: correctness/capability requirements (always apply);
-        ``struct_fn``: the structure heuristic (lazy — overridden by
-        ``prefer``, and never evaluated for non-preferred rungs)."""
-        if prefer is not None:
-            return prefer == kind and cap
-        return cap and struct_fn()
-
-    # 1. block-granule path
-    cap1 = n == m and n % 2 == 0
-    if cap1:
-        from ..formats.bsr import BSR_MAX_NB
-
-        cap1 = n // 2 <= BSR_MAX_NB or jax.config.jax_enable_x64
-    if want("blockseg", cap1,
-            lambda: on_tpu and n >= 1024 and csr_block_fill(a, 2) == 1.0):
-        from ..formats.bsr import csr_to_bsr
-        from .pallas_csr_block import build_seg_tiles_block
-        from .reorder import block_perm_pair, csr_permute, rcm_order_blocked
-
-        try:
-            if reorder:
-                perm = rcm_order_blocked(a, 2)
-                ap = csr_permute(a, perm, perm)
-            else:
-                perm, ap = None, a
-            ab = csr_to_bsr(ap, 2)
-            plan = build_seg_tiles_block(ab, wsub=16)
-            if plan.fill * 4 >= _MIN_FILL:
-                log(f"block-granule tiles (fill {plan.fill:.3f})")
-                pb = inv = None
-                if perm is not None:
-                    pbn, invn = block_perm_pair(perm, 2)
-                    pb, inv = jnp.asarray(pbn), jnp.asarray(invn)
-                return SmvmAutoPlan(
-                    state=(ab, plan), perm=pb, inv_perm=inv,
-                    kind="blockseg", shape=(n, m),
-                )
-        except ValueError:
-            pass  # tile overflow etc. — fall through the ladder
-
-    # 2. scalar segment tiles (with RCM only when the bandwidth needs it)
-    if want("segtile", n + m <= _MAX_RESIDENT, lambda: on_tpu):
-        perm, ap, vsrc = None, a, None
-        if reorder and n == m:
-            from .reorder import csr_bandwidth as _bw
-            from .reorder import permute_apply, permute_prepare, rcm_order
-
-            bw0 = csr_bandwidth(a)
-            # a bandwidth within a few operand windows already tiles
-            # densely — skip the RCM pass (comparable in cost to the plan
-            # build itself) for well-ordered inputs
-            if bw0 > 16 * 128:
-                perm2 = rcm_order(a)
-                pplan = permute_prepare(a, perm2, perm2)
-                ap2 = permute_apply(pplan, a)
-                if _bw(ap2) < bw0 / 2:
-                    perm, ap = perm2, ap2
-                    vsrc = pplan.src  # original slot -> plan entry order
-        try:
-            plan = build_seg_tiles(ap, wsub="auto", refreshable=refreshable)
-        except ValueError:
-            plan = None
-        if plan is not None and plan.fill >= _MIN_FILL:
-            log(f"segment tiles (fill {plan.fill:.3f}, "
-                f"reordered={perm is not None})")
-            pj = None if perm is None else jnp.asarray(perm)
-            inv = None if perm is None else jnp.asarray(np.argsort(perm))
-            return SmvmAutoPlan(state=(ap, plan), perm=pj, inv_perm=inv,
-                                kind="segtile", shape=(n, m),
-                                value_src=vsrc)
-
-    # 3. BELL block storage (bsz >= 8, no column locality needed)
-    if want("bell", n == m, lambda: True):
+    if prefer in (None, "bell") and n == m:
         bsz, _ = detect_block_size(a, candidates=(32, 16, 8))
         if bsz >= 8:
             from ..formats.bell import bell_from_csr
 
             log(f"BELL block storage (bsz {bsz})")
-            return SmvmAutoPlan(state=(bell_from_csr(a, bsz),), perm=None,
-                                inv_perm=None, kind="bell", shape=(n, m))
+            return SmvmAutoPlan(state=(bell_from_csr(a, bsz),), kind="bell",
+                                shape=(n, m))
 
-    # 4. hub/tail split for heavy-tailed degree distributions.  The mass
-    # check is a pure degree-histogram computation (shared with the split
-    # itself, so the gate and the build agree on the strip) — the full
-    # split (two CSR extractions + two plans) is built only when the
-    # strip qualifies
-    from .hub_split import hub_mass_fraction
-
-    if want("hubsplit", True,
-            lambda: on_tpu and n >= 4096 and hub_mass_fraction(a) >= 0.08):
-        from .hub_split import hub_split_prepare
-
-        split = hub_split_prepare(a)
-        if split.hub_fraction >= 0.08 or prefer == "hubsplit":
-            log(f"hub/tail split (hub fraction {split.hub_fraction:.3f})")
-            return SmvmAutoPlan(state=(split,), perm=None, inv_perm=None,
-                                kind="hubsplit", shape=(n, m))
-
-    # 5. the XLA wall
     from .spmv import build_spmv_plan
 
     log("row-binned XLA path")
-    return SmvmAutoPlan(state=(a, build_spmv_plan(a)), perm=None,
-                        inv_perm=None, kind="xla", shape=(n, m))
+    return SmvmAutoPlan(state=(a, build_spmv_plan(a)), kind="xla",
+                        shape=(n, m))

@@ -1,18 +1,14 @@
 """Bandwidth-reducing reordering (reverse Cuthill-McKee) and CSR permutation.
 
-The TPU fast paths in this library are locality kernels: the segment-tile
-SpMV (``ops/pallas_csr.py``) wins when each 8-row block's columns land in a
-narrow window, and the banded BELL SpMM kernel wins on block-banded
-structure.  Real unstructured matrices (FEM meshes, circuit graphs, sparse
-networks) usually HAVE that locality — just not in their stored order.  RCM
-recovers it: a symmetric permutation that clusters every row's columns
-around the diagonal, turning an arbitrary pattern into a (near-)banded one
-so the locality kernels apply.
+Locality helps every SpMV/SpMM formulation here: when each row's columns
+land near the diagonal, operand gathers hit the same cache lines, and a
+block-banded pattern converts to dense BELL blocks.  Real unstructured
+matrices (FEM meshes, circuit graphs, sparse networks) usually HAVE that
+locality — just not in their stored order.  RCM recovers it: a symmetric
+permutation that clusters every row's columns around the diagonal.
 
 The reference library has no reordering (it is format-local; nothing in
-compressed.fut permutes) — this module is the TPU-first locality lever for
-unstructured SpMV (BASELINE config 2), in the same spirit as the
-segment-tile kernel itself.
+compressed.fut permutes).
 
 Split in the house prepare/apply style (cf. ``ops/spgemm.spgemm_prepare``):
 the symbolic pass (:func:`rcm_order`, :func:`permute_prepare`) runs once per
@@ -25,7 +21,7 @@ Usage (symmetric reorder around SpMV)::
     perm = rcm_order(a)                      # host, once per pattern
     plan = permute_prepare(a, perm, perm)    # host, once per pattern
     ap = permute_apply(plan, a)              # device gather; A' = P A P^T
-    yp = ap @ x[perm]                        # banded fast path applies
+    yp = ap @ x[perm]                        # banded SpMV
     y = unpermute_vector(yp, perm)           # y == a @ x
 """
 
@@ -44,8 +40,6 @@ from .segmented import INDEX_DTYPE
 
 __all__ = [
     "rcm_order",
-    "rcm_order_blocked",
-    "block_perm_pair",
     "csr_bandwidth",
     "PermutePlan",
     "permute_prepare",
@@ -121,52 +115,6 @@ def _rcm_numpy(indptr: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
                 perm[tail:tail + nb.size] = nb
                 tail += nb.size
     return perm[::-1].copy()
-
-
-def rcm_order_blocked(a: CSR, bsz: int) -> np.ndarray:
-    """RCM on the BLOCK graph of a square CSR with natural ``bsz x bsz``
-    blocks, expanded back to a scalar permutation that keeps each block's
-    rows adjacent and in order.
-
-    Scalar :func:`rcm_order` interleaves a block's rows with its
-    neighbours' (it knows nothing about blocks), destroying the dense-block
-    adjacency the block-granule kernels need
-    (ops/pallas_csr_block.py); this variant permutes whole blocks.  ``n``
-    must be divisible by ``bsz``; the pattern need not have full block
-    fill (the block graph is the union pattern)."""
-    n, m = a.shape
-    if n != m:
-        raise ValueError(f"rcm_order_blocked: square required, got {a.shape}")
-    if bsz <= 0 or n % bsz:
-        raise ValueError(f"rcm_order_blocked: bsz {bsz} must divide n {n}")
-    indptr = np.asarray(a.indptr, np.int64)
-    k = int(indptr[-1])
-    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    cols = np.asarray(a.indices[:k], np.int64)
-    nb = n // bsz
-    key = np.unique((rows // bsz) * nb + (cols // bsz))
-    bptr = np.zeros(nb + 1, np.int64)
-    np.cumsum(np.bincount((key // nb).astype(np.int64), minlength=nb),
-              out=bptr[1:])
-    bcols = (key % nb).astype(np.int64)
-    pb = plansort.rcm_order(bptr, bcols)
-    if pb is None:
-        pb = _rcm_numpy(bptr, bcols, nb)
-    return (pb[:, None] * bsz + np.arange(bsz, dtype=np.int64)).reshape(-1)
-
-
-def block_perm_pair(perm: np.ndarray, bsz: int = 2):
-    """Forward/inverse BLOCK permutations from a block-preserving scalar
-    permutation (:func:`rcm_order_blocked` output): ``perm_b[k]`` = old
-    block at new position k, ``inv_b`` its inverse.  The gather idiom for
-    block-granule permutes (``v.reshape(-1, bsz)[perm_b]`` /
-    ``y.reshape(-1, bsz)[inv_b]`` — both ends as gathers, measured faster
-    than scatter-unpermute, docs/performance.md round 5)."""
-    perm = np.asarray(perm, np.int64)
-    pb = (perm // bsz)[::bsz]
-    inv = np.empty(pb.size, np.int64)
-    inv[pb] = np.arange(pb.size)
-    return pb, inv
 
 
 def csr_bandwidth(a: CSR) -> int:
@@ -315,8 +263,8 @@ def unpermute_vector(v: jax.Array, perm) -> jax.Array:
 
 def reorder_for_locality(a: CSR) -> tuple[CSR, np.ndarray]:
     """Symmetric RCM reorder: returns ``(P A P^T, perm)``.  The permuted
-    matrix is the one to build fast-path plans on (``build_seg_tiles``,
-    BELL conversion); solve in permuted space with ``permute_vector`` /
+    matrix is the one to build plans on (``smvm_prepare``, BELL
+    conversion); solve in permuted space with ``permute_vector`` /
     :func:`unpermute_vector` at the boundary."""
     perm = rcm_order(a)
     return csr_permute(a, perm, perm), perm

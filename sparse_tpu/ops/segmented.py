@@ -1,4 +1,4 @@
-"""Segmented-operation engines: the TPU-native equivalent of the reference's
+"""Segmented-operation engines: the JAX equivalent of the reference's
 ``segmented`` package (diku-dk/segmented, used at e.g. reference
 compressed.fut:129,146,176).
 
@@ -12,23 +12,17 @@ The reference builds every sparse op out of four primitives:
 All functions here are jit-compatible: every output shape is a static function
 of input shapes plus explicitly-passed static totals.  Irregularity (dynamic
 nnz) is handled by the *caller* via padding conventions, never by dynamic
-shapes -- that is the key re-design for XLA/TPU.
+shapes -- that is the key re-design for XLA.
 """
 
 from __future__ import annotations
 
 import jax
-import numpy as np
 import jax.numpy as jnp
 
-# Index dtype used throughout the library.  TPUs natively operate on 32-bit
-# integers; matrices with >2**31 stored elements per shard are out of scope.
+# Index dtype used throughout the library: 32-bit indices halve index
+# traffic; matrices with >2**31 stored elements per shard are out of scope.
 INDEX_DTYPE = jnp.int32
-
-IDXMAP_ZERO = np.int32(0)
-"""Strong-typed constant for Pallas BlockSpec index-map components: a
-python literal 0 traces as a weak i64 under jax x64 and Mosaic rejects
-the mixed index tuple (docs/performance.md \"x64 hardening\")."""
 
 
 def asindex(x) -> jax.Array:

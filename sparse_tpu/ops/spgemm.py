@@ -123,21 +123,21 @@ def spgemm_products(a: CSR, b_data, b_indices, b_starts, b_lens, k: int,
     return COO(row=row, col=col, data=val.astype(out_dtype), shape=(n, k))
 
 
-# -- MXU (dense-accumulator) path ---------------------------------------------
+# -- dense-accumulator path (``method="mxu"``, a historical name) ------------
 #
-# TPU-first observation: at moderate dimensions the ESC path is dominated not
-# by arithmetic but by the lax.sort that merges duplicate (row, col) products
-# — a sort the MXU can make unnecessary.  Densify both operands (values AND a
+# At moderate dimensions the ESC path is dominated not by arithmetic but by
+# the lax.sort that merges duplicate (row, col) products — a sort a dense
+# matrix product makes unnecessary.  Densify both operands (values AND a
 # stored-entry indicator), do two dense matmuls (value product + pattern
 # count), then compact the count>0 mask straight into row-major CSR with one
-# cumsum.  The "wasted" dense FLOPs run at MXU rates, which at n,m,k ≲ 4k is
-# orders of magnitude cheaper than sorting F product pairs.  Semantics match
+# cumsum.  The "wasted" dense FLOPs run at matrix-unit rates, which at
+# n,m,k ≲ 4k is far cheaper than sorting F product pairs.  Semantics match
 # the ESC path (compressed.fut:268-331): an output entry is *stored* iff some
 # stored A entry meets a stored B entry (even when values cancel or are zero).
 
 _MXU_DENSE_ELEMS = 64 * 1024 * 1024
-"""Auto-dispatch budget: total dense elements (n*m + m*k + n*k) the MXU path
-may materialize (~768 MB at f32 across the three temporaries)."""
+"""Auto-dispatch budget: total dense elements (n*m + m*k + n*k) the dense
+path may materialize (~768 MB at f32 across the three temporaries)."""
 
 
 def _dense_values(a: CSR) -> jax.Array:
@@ -162,10 +162,10 @@ def _dense_pattern(a: CSR) -> jax.Array:
 def _pattern_mask(a: CSR, b: CSR) -> jax.Array:
     """Boolean [n, k] mask of stored output entries of A @ B.
 
-    The count matmul is exact at default (one-pass bf16) precision: every
-    product is 1.0*1.0 (exact in bf16) and the MXU accumulates in f32, so
-    the result is exactly the integer pair count for counts < 2**24 — and
-    the mask only asks count > 0."""
+    The count matmul is exact at default precision: every product is
+    1.0*1.0 (exact in bf16 and TF32) and accumulates in f32, so the result
+    is exactly the integer pair count for counts < 2**24 — and the mask
+    only asks count > 0."""
     return jnp.matmul(_dense_pattern(a), _dense_pattern(b)) > 0.5
 
 
@@ -191,8 +191,8 @@ def _csr_from_dense_mask(vals: jax.Array, mask: jax.Array, cap: int) -> CSR:
 
 @jax.jit
 def spgemm_mxu_nse(a: CSR, b: CSR) -> jax.Array:
-    """Stored-entry count of A @ B via the pattern matmul (the MXU path's
-    symbolic pass; eager callers concretize it to size the numeric pass)."""
+    """Stored-entry count of A @ B via the pattern matmul (the dense
+    path's symbolic pass; eager callers concretize it to size the numeric pass)."""
     n, m = a.shape
     _, k = b.shape
     if a.nse == 0 or b.nse == 0 or n == 0 or m == 0 or k == 0:
@@ -202,7 +202,8 @@ def spgemm_mxu_nse(a: CSR, b: CSR) -> jax.Array:
 
 @partial(jax.jit, static_argnames=("out_nse",))
 def spgemm_mxu_csr_csr(a: CSR, b: CSR, out_nse: int) -> CSR:
-    """jit-compatible MXU SpGEMM core: C = A @ B, both row-compressed.
+    """jit-compatible dense-accumulator SpGEMM core: C = A @ B, both
+    row-compressed.
 
     ``out_nse`` is the static result capacity (>= the true stored count, see
     :func:`spgemm_mxu_nse`; short capacities truncate row-major).  Caveat vs
@@ -245,12 +246,10 @@ def _spgemm_route(a: CSR, b_rows: CSR,
     """Pick the SpGEMM core for ``method="auto"``: ``("mxu"|"block"|"esc",
     bsz)`` (bsz only meaningful for the block route).
 
-    Measured basis (docs/performance.md "Block SpGEMM", v5e): every
-    scalar-gather formulation is pinned at ~0.02-0.08 GFLOP/s by the ~88 M
-    gathers/s op wall, while ``bsr_smsmm_apply`` moves 4 KB blocks per
-    gather and runs 71 GFLOP/s (~900x).  The MXU dense-accumulator core
-    stays preferred while its dense footprint fits — below that size its
-    sort-free compaction beats both.  The block route is taken only when
+    The dense-accumulator core stays preferred while its dense footprint
+    fits — below that size its sort-free compaction needs no sort at all.
+    Above it, ``bsr_smsmm_apply`` gathers whole bsz x bsz blocks per
+    product instead of scalars.  The block route is taken only when
     BOTH stored patterns have *fully dense* natural blocks
     (``csr_block_fill == 1.0``): then re-blocking costs zero storage
     blow-up and the block product's stored structure at scalar granularity
@@ -284,23 +283,14 @@ def _spgemm_route(a: CSR, b_rows: CSR,
     return "esc", 0
 
 
-def _spgemm_block(a: CSR, b_rows: CSR, bsz: int, compact: bool,
-                  use_pallas: bool | None = None,
-                  interpret: bool = False) -> CSR:
-    """Block-routed SpGEMM: re-block both operands, multiply on the MXU
-    block path, return to scalar CSR keeping every stored block position
-    (exact reference structure under the full-fill routing precondition).
+def _spgemm_block(a: CSR, b_rows: CSR, bsz: int, compact: bool) -> CSR:
+    """Block-routed SpGEMM: re-block both operands, multiply through the
+    prepared block apply (``bsr_smsmm_prepare`` + ``bsr_smsmm_apply``), and
+    return to scalar CSR keeping every stored block position (exact
+    reference structure under the full-fill routing precondition).
 
-    Uses the prepare/apply pair rather than the one-shot device core: the
-    route is eager anyway (host-sync'd stats), the host symbolic pass is
-    cheaper than the device expand-sort at these sizes, and the numeric
-    pass follows the measured routing rule (docs/performance.md
-    "Small-block apply"): bsz <= 4 -> the flat XLA apply; bsz >= 8 on TPU
-    -> the Pallas DMA-slab apply (4 KB granules at bsz=32: ~350 GFLOP/s,
-    4.7x the XLA einsum apply, and no (F, bsz, bsz) gathered streams whose
-    tile padding OOMs at real sizes)."""
-    import jax as _jax
-
+    The route is eager anyway (host-synced stats), so the host symbolic
+    pass stands in for the one-shot device expand-sort."""
     from ..formats.bsr import (
         bsr_smsmm_apply,
         bsr_smsmm_prepare,
@@ -310,25 +300,7 @@ def _spgemm_block(a: CSR, b_rows: CSR, bsz: int, compact: bool,
 
     ab = csr_to_bsr(a, bsz, compact=True)
     bb = csr_to_bsr(b_rows, bsz, compact=True)
-    plan = bsr_smsmm_prepare(ab, bb)
-    cb = None
-    if use_pallas is None:
-        use_pallas = _jax.default_backend() == "tpu"
-    if bsz >= 8 and use_pallas:
-        from ..ops.pallas_bsr import (
-            bsr_smsmm_apply_pallas,
-            bsr_smsmm_pallas_prepare,
-        )
-
-        try:
-            pp = bsr_smsmm_pallas_prepare(plan, ab.nbz, bb.nbz)
-        except ValueError:
-            pp = None  # one output's products blow the SMEM budget
-        if pp is not None:
-            cb = bsr_smsmm_apply_pallas(pp, ab, bb, interpret=interpret)
-    if cb is None:
-        cb = bsr_smsmm_apply(plan, ab, bb)
-    out = bsr_to_csr(cb)
+    out = bsr_to_csr(bsr_smsmm_apply(bsr_smsmm_prepare(ab, bb), ab, bb))
     if compact:
         from ..formats.csr import csr_compact
 
@@ -544,11 +516,11 @@ def spgemm(
     to the exact stored-entry count.
 
     ``method``: ``"auto"`` (default) picks per :func:`_spgemm_route` — the
-    sort-free MXU dense-accumulator core for float matrices whose dense
+    sort-free dense-accumulator core for float matrices whose dense
     footprint fits the budget (``_MXU_DENSE_ELEMS``); the **block route**
-    (``csr_to_bsr`` -> ``bsr_smsmm`` -> ``bsr_to_csr``, the measured ~900x
-    path, docs/performance.md) when both stored patterns have fully dense
-    natural bsz x bsz blocks at a detected bsz in 2/4/8; else the ESC
+    (``csr_to_bsr`` -> ``bsr_smsmm`` -> ``bsr_to_csr``) when both stored
+    patterns have fully dense natural bsz x bsz blocks at a detected bsz in
+    32/16/8/4/2; else the ESC
     expand-sort-compress core.  ``"mxu"`` / ``"esc"`` / ``"block"`` force a
     core (``"block"`` detects bsz, or pass ``block_bsz``; it requires
     square operands and, for exact reference structure, full block fill —

@@ -2,8 +2,8 @@
 
 North-star addition (BASELINE.json config 3): generalises the reference's
 ``smvm`` (compressed.fut:134-146) and ``dmsmm`` (mono.fut:161-162) to
-sparse-times-dense-matrix.  XLA path: row gather + segment-sum; the Pallas
-fused kernel lives in ``sparse_tpu.ops.pallas``.
+sparse-times-dense-matrix.  XLA path: row gather + segment-sum; block
+matrices take ``formats.bell.bell_spmm`` (a Triton kernel on GPUs).
 """
 
 from __future__ import annotations

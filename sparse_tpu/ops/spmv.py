@@ -1,14 +1,13 @@
-"""Fast CSR SpMV/SpMM paths for TPU.
+"""Row-binned CSR SpMV/SpMM (the XLA rung of ``smvm_prepare``).
 
 The reference's ``smvm`` engine is ``expand_outer_reduce`` — a flat gather +
-segmented reduction (compressed.fut:134-146).  Segmented reductions lower to
-scatter-adds, which serialize on TPU; the TPU-native formulation used here
-eliminates scatter entirely:
+segmented reduction (compressed.fut:134-146), which lowers to a
+scatter-add.  The formulation here has no scatter in the reduction:
 
 * **ELL-ification on the fly**: each row's entries are viewed as a dense
   ``(rows, L)`` window of the CSR arrays (``L`` = static row capacity), so
-  the whole SpMV is gather -> multiply -> row-reduce, all dense ops that XLA
-  tiles onto the VPU with the operand vector resident in VMEM.
+  the whole SpMV is gather -> multiply -> row-reduce, dense ops that XLA
+  fuses into one pass per bin.
 * **Row binning** (``SpmvPlan``): rows are bucketed by length into power-of-2
   capacity bins (one ELL sweep per bin), so a few long rows don't inflate the
   padding of the million short ones.  The plan is computed once per sparsity
@@ -75,7 +74,7 @@ def csr_smvm_ell(a: CSR, v: jax.Array, L: int) -> jax.Array:
     if a.nse == 0 or m == 0 or L == 0:
         return jnp.zeros((n,), jnp.result_type(a.dtype, v.dtype))
     idx, val = _ell_windows(a, L)
-    # flat 1-D gather then reshape: the layout XLA's TPU gather handles best
+    # flat 1-D gather then reshape
     g = v[idx.reshape(-1)].reshape(idx.shape)
     return jnp.sum(val * g, axis=1)
 
@@ -89,8 +88,7 @@ def csr_spmm_ell(a: CSR, b: jax.Array, L: int) -> jax.Array:
     if a.nse == 0 or m == 0 or k == 0 or L == 0:
         return jnp.zeros((n, k), jnp.result_type(a.dtype, b.dtype))
     idx, val = _ell_windows(a, L)
-    # flat row-gather: each gathered element is a contiguous k-wide row of b,
-    # which amortizes TPU per-gather cost (measured ~100 GB/s eff at k=128)
+    # flat row-gather: each gathered element is a contiguous k-wide row of b
     gathered = b[idx.reshape(-1)].reshape(*idx.shape, k)
     return jnp.einsum("nl,nlk->nk", val, gathered,
                       precision=matmul_precision(val.dtype, b.dtype))

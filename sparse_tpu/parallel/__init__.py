@@ -18,16 +18,13 @@ from .cg import (  # noqa: F401
 from .halo import (  # noqa: F401
     HaloPCSR,
     HaloPCSROverlap,
-    HaloSegtile,
     dist_spmv,
     halo_partition,
     halo_partition_overlapped,
-    halo_partition_segtile,
     halo_spmm,
     halo_spmm_overlapped,
     halo_spmv,
     halo_spmv_overlapped,
-    halo_spmv_segtile,
 )
 from .pbell import (  # noqa: F401
     PBELL,
@@ -43,13 +40,10 @@ from .phub import (  # noqa: F401
 )
 from .pbsr import (  # noqa: F401
     PBSR,
-    PBsrPallasPlan,
     PBsrSmsmmPlan,
     build_pbsr_smsmm_plan,
-    build_pbsr_smsmm_plan_pallas,
     pbsr_from_bsr,
     pbsr_smsmm,
-    pbsr_smsmm_pallas,
     pbsr_to_bsr,
 )
 from .pspgemm import (  # noqa: F401

@@ -7,11 +7,10 @@ the end-to-end multi-chip pipeline the driver dry-runs (``__graft_entry__``)
 and the weak-scaling benchmark exercises.
 
 Every solver's matvec goes through :func:`~sparse_tpu.parallel.halo.dist_spmv`,
-so ``a`` may be ANY partitioned type — ``PCSR`` (all-gather baseline),
-``HaloPCSR``/``HaloPCSROverlap`` (halo exchange), or ``HaloSegtile`` (halo +
-the segment-tile Pallas kernel per shard).  Partition once with the richest
-structure the pattern supports and the whole Krylov iteration inherits that
-matvec rate.
+so ``a`` may be ANY partitioned type — ``PCSR`` (all-gather baseline) or
+``HaloPCSR``/``HaloPCSROverlap`` (halo exchange).  Partition once with the
+richest structure the pattern supports and the whole Krylov iteration
+inherits that matvec.
 
 No reference counterpart (the reference is single-device, SURVEY.md §2.3);
 semantics are standard CG on SPD systems, validated against dense NumPy
@@ -203,7 +202,7 @@ def chebyshev_preconditioner(a: PCSR, mesh: Mesh, *, lmax, lmin=None,
                              degree: int = 8):
     """Polynomial (Chebyshev) preconditioner: returns a callable ``M(v)``
     approximating ``A^{-1} v`` with ``degree`` SpMVs and no solves — the
-    TPU-friendly preconditioner shape (pure matvec chains, no sequential
+    accelerator-friendly preconditioner shape (pure matvec chains, no sequential
     triangular sweep).  ``A`` must be SPD with spectrum inside
     ``[lmin, lmax]`` (``lmin`` defaults to ``lmax / 30``; use
     :func:`estimate_lmax` for the bound).  The operator is a fixed

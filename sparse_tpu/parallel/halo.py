@@ -10,8 +10,8 @@ by a purely local SpMV whose column indices were *remapped at plan time*
 into the received-halo layout.  Communication drops from O(m) to O(halo).
 
 This is the sparse analogue of ring-attention's gather-overlap (SURVEY.md
-§5.7): the plan is static data, the exchange is one XLA collective over ICI,
-and the local compute is the standard scatter-free ELL path.  No reference
+§5.7): the plan is static data, the exchange is one XLA collective between
+devices, and the local compute is a gather + segment-sum.  No reference
 counterpart exists (the reference is single-device).
 """
 
@@ -21,7 +21,6 @@ import dataclasses
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
@@ -39,9 +38,6 @@ __all__ = [
     "halo_partition_overlapped",
     "halo_spmv_overlapped",
     "halo_spmm_overlapped",
-    "HaloSegtile",
-    "halo_partition_segtile",
-    "halo_spmv_segtile",
     "dist_spmv",
 ]
 
@@ -347,10 +343,10 @@ def halo_spmv_overlapped(
 ) -> jax.Array:
     """Distributed SpMV with the halo exchange overlapped with interior
     compute.  Same calling convention as :func:`halo_spmv`.  The interior
-    partial sum has no data dependency on the collective, so on TPU the
-    async all_to_all flies over ICI while the interior SpMV occupies the
-    core (XLA latency-hiding scheduling); the frontier partial sum closes
-    the row totals afterwards."""
+    partial sum has no data dependency on the collective, so XLA's
+    latency-hiding scheduler can run the interior SpMV while the async
+    all_to_all is in flight; the frontier partial sum closes the row
+    totals afterwards."""
     return _halo_spmv_overlapped_exec(
         a.int_data, a.int_idx, a.int_rows,
         a.fr_data, a.fr_idx, a.fr_rows,
@@ -376,254 +372,16 @@ def halo_spmm_overlapped(
     return out.reshape(-1, b.shape[1])
 
 
-# ---------------------------------------------------------------------------
-# Segment-tile halo SpMV: the fast single-chip kernel inside shard_map.
-#
-# halo_spmv's per-shard body is the scalar-gather XLA SpMV (~0.015-0.14
-# Gnnz/s on the chip); the segment-tile Pallas kernel runs the same local
-# work 10-80x faster (docs/performance.md).  This variant builds one
-# SegTilePlan PER SHARD over the *halo column space* (the compacted
-# s*halo+rank layout the exchange delivers), stacks the plan arrays on the
-# device axis with COMMON static meta (kstep / tile count / chunks equalized
-# across shards so shard_map traces one body), and runs
-# ops.pallas_csr.segtile_apply inside the shard_map body right after the
-# all_to_all — partitioned matrices inherit the measured per-chip rate.
-# ---------------------------------------------------------------------------
-
-
-@partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["vals", "q", "seg_of", "rb", "send_idx"],
-    meta_fields=["shape", "axis", "rows_per_shard", "cols_per_shard",
-                 "halo", "wsub", "rows", "kstep", "chunks", "n_tiles",
-                 "fill"],
-)
-@dataclasses.dataclass(frozen=True)
-class HaloSegtile:
-    """Halo-exchange plan + per-shard segment-tile plans (stacked).
-
-    ``vals``/``q``: (D, T, R, 128) slot values / sublane pointers;
-    ``seg_of``/``rb``: (D, T) window bases / output row blocks;
-    ``send_idx``: (D, D, halo) strictly-REMOTE entries (a shard's own
-    columns are read directly from its operand slab — the plan's column
-    space is ``[own slab | received halo]``, as in
-    :class:`HaloPCSROverlap`).  All segment-tile meta
-    (``kstep``/``chunks``/``n_tiles``) is equalized across shards so the
-    shard_map body is a single trace.  ``fill`` is the worst shard's slot
-    occupancy (diagnostic)."""
-
-    vals: jax.Array
-    q: jax.Array
-    seg_of: jax.Array
-    rb: jax.Array
-    send_idx: jax.Array
-    shape: tuple[int, int]
-    axis: str
-    rows_per_shard: int
-    cols_per_shard: int
-    halo: int
-    wsub: int
-    rows: int
-    kstep: int
-    chunks: tuple
-    n_tiles: int
-    fill: float
-
-    @property
-    def n_shards(self) -> int:
-        return self.vals.shape[0]
-
-    @property
-    def comm_entries_per_device(self) -> int:
-        """all_to_all payload per device, in operand entries (D * halo)."""
-        return self.n_shards * self.halo
-
-
-def halo_partition_segtile(
-    a: CSR, mesh: Mesh, axis: str = "shards", wsub: int | str = 8
-) -> HaloSegtile:
-    """Build halo plan + per-shard segment-tile plans (eager, once per
-    pattern + mesh).  ``wsub``: window height per ``build_seg_tiles``
-    ("auto" resolves ONCE on the largest shard and applies to all, keeping
-    the kernel meta shared).  Per-shard VMEM residency: the halo buffer
-    (D * halo entries) + the local output rows — both far smaller than the
-    single-chip whole-operand residency, so this scales past the
-    single-chip ``_MAX_RESIDENT`` cap."""
-    import jax.numpy as jnp
-
-    from ..formats.csr import CSR as _CSR
-    from ..ops.pallas_csr import _K, _TILE_CAP, build_seg_tiles
-
-    n, m = a.shape
-    d = mesh.shape[axis]
-    rows_p = -(-max(n, 1) // d)
-    cols_p = -(-max(m, 1) // d)
-    indptr = np.asarray(a.indptr)
-    indices = np.asarray(a.indices)
-    data = np.asarray(a.data)
-
-    # pass 1: per-shard needed REMOTE columns (grouped by source shard).
-    # A shard's own slab columns never enter the exchange: the kernel's
-    # operand is [own slab (direct) | received halo], so the send gather and
-    # the collective carry strictly the remote frontier (same design as
-    # HaloPCSROverlap) — on a 1-device mesh the whole exchange degenerates
-    # to a 1-entry dummy and the kernel runs at the bare single-chip rate.
-    needed: list[list[np.ndarray]] = []
-    raw: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
-    halo = 1
-    for dst in range(d):
-        lo, hi = min(dst * rows_p, n), min((dst + 1) * rows_p, n)
-        s, e = int(indptr[lo]), int(indptr[hi])
-        cols = indices[s:e]
-        uniq = np.unique(cols)
-        by_src = [
-            np.zeros(0, np.int64) if src == dst
-            else uniq[(uniq >= src * cols_p) & (uniq < (src + 1) * cols_p)]
-            - src * cols_p
-            for src in range(d)
-        ]
-        needed.append(by_src)
-        halo = max(halo, max((b.size for b in by_src), default=0))
-        ptr = np.zeros(rows_p + 1, np.int64)
-        ptr[: hi - lo + 1] = indptr[lo : hi + 1] - indptr[lo]
-        ptr[hi - lo + 1 :] = ptr[hi - lo]
-        raw.append((ptr, cols.copy(), data[s:e]))
-
-    # pass 2: remap columns into the [own slab | halo] operand space and
-    # build per-shard local CSRs
-    send = np.zeros((d, d, halo), np.int32)
-    local_csrs = []
-    for dst in range(d):
-        remap = np.zeros(m + 1, np.int64)
-        own = np.arange(max(min(cols_p, m - dst * cols_p), 0),
-                        dtype=np.int64)
-        remap[dst * cols_p + own] = own  # direct: no exchange round-trip
-        for src in range(d):
-            b = needed[dst][src]
-            send[src, dst, : b.size] = b
-            remap[src * cols_p + b] = cols_p + src * halo + np.arange(b.size)
-        ptr, cols, vals = raw[dst]
-        local_csrs.append(
-            _CSR(
-                data=jnp.asarray(vals),
-                indices=jnp.asarray(remap[cols].astype(np.int32)),
-                indptr=jnp.asarray(ptr.astype(np.int64)),
-                shape=(rows_p, cols_p + d * halo),
-            )
-        )
-
-    # resolve "auto" once (largest shard) so all shards share wsub
-    if wsub == "auto":
-        big = max(range(d), key=lambda i: int(local_csrs[i].data.shape[0]))
-        probe = build_seg_tiles(local_csrs[big], wsub="auto")
-        wsub = probe.wsub
-    plans = [build_seg_tiles(c, wsub=wsub) for c in local_csrs]
-
-    # equalize static meta: common kstep, tile count, chunks
-    kstep = max(p.kstep for p in plans)
-    n_tiles = max(-(-p.n_tiles // kstep) * kstep for p in plans)
-    n_groups = n_tiles // kstep
-    cap_groups = max(_TILE_CAP // _K, 1)
-    chunks = tuple(
-        (g0, min(g0 + cap_groups, n_groups))
-        for g0 in range(0, n_groups, cap_groups)
-    )
-    R = plans[0].rows
-
-    def _stack(get, dtype, shape_tail):
-        out = np.zeros((d, n_tiles) + shape_tail, dtype)
-        for i, p in enumerate(plans):
-            arr = np.asarray(get(p))
-            out[i, : arr.shape[0]] = arr
-        return out
-
-    vals = _stack(lambda p: p.vals, np.asarray(plans[0].vals).dtype,
-                  (R, 128))
-    q = _stack(lambda p: p.q, np.int8, (R, 128))
-    seg_of = _stack(lambda p: p.seg_of, np.int32, ())
-    rb = _stack(lambda p: p.rb, np.int32, ())
-    return HaloSegtile(
-        vals=put_sharded(vals, mesh, axis),
-        q=put_sharded(q, mesh, axis),
-        seg_of=put_sharded(seg_of, mesh, axis),
-        rb=put_sharded(rb, mesh, axis),
-        send_idx=put_sharded(send, mesh, axis),
-        shape=(n, m),
-        axis=axis,
-        rows_per_shard=rows_p,
-        cols_per_shard=cols_p,
-        halo=halo,
-        wsub=wsub,
-        rows=R,
-        kstep=kstep,
-        chunks=chunks,
-        n_tiles=n_tiles,
-        fill=min(p.fill for p in plans),
-    )
-
-
-@partial(jax.jit, static_argnames=("mesh", "ax", "d", "H", "rows_p", "wsub",
-                                   "R", "kstep", "chunks", "interpret"))
-def _halo_spmv_segtile_exec(vals, q, seg_of, rb, send_idx, v, *, mesh, ax,
-                            d, H, rows_p, wsub, R, kstep, chunks, interpret):
-    from ..ops.pallas_csr import segtile_apply
-
-    def body(vals, q, seg_of, rb, send_idx, v_local):
-        send_buf = v_local[send_idx[0]]  # (D, H) strictly-remote entries
-        recv = jax.lax.all_to_all(send_buf, ax, split_axis=0, concat_axis=0)
-        # operand space the plan indices were built against: own slab
-        # directly (never round-trips the exchange), halo appended
-        v_op = jnp.concatenate([v_local, recv.reshape(d * H)])
-        y = segtile_apply(
-            vals[0], q[0], seg_of[0], rb[0], v_op,
-            n=rows_p, wsub=wsub, rows=R, kstep=kstep, chunks=chunks,
-            interpret=interpret,
-        )
-        return y[:rows_p][None]
-
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # annotation, which the default shard_map VMA check rejects
-    f = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(ax),) * 6,
-        out_specs=P(ax),
-        check_vma=False,
-    )
-    return f(vals, q, seg_of, rb, send_idx, v)
-
-
-def halo_spmv_segtile(a: HaloSegtile, v: jax.Array, mesh: Mesh) -> jax.Array:
-    """Distributed SpMV: halo all_to_all + the segment-tile Pallas kernel
-    per shard.  Same calling convention as :func:`halo_spmv` (``v`` sharded
-    to ``cols_per_shard * D``; output padded row-sharded).  The per-shard
-    compute is the measured fast path (docs/performance.md), not the
-    scalar-gather XLA formulation — a 1-device mesh runs within ~10% of the
-    bare single-chip kernel.  Off-TPU backends run the kernel in interpret
-    mode (CPU-mesh tests, dryrun)."""
-    interpret = jax.default_backend() != "tpu"
-    return _halo_spmv_segtile_exec(
-        a.vals, a.q, a.seg_of, a.rb, a.send_idx, v,
-        mesh=mesh, ax=a.axis, d=a.n_shards, H=a.halo,
-        rows_p=a.rows_per_shard, wsub=a.wsub, R=a.rows, kstep=a.kstep,
-        chunks=a.chunks, interpret=interpret,
-    ).reshape(-1)
-
-
 def dist_spmv(a, v: jax.Array, mesh: Mesh) -> jax.Array:
     """Distributed SpMV dispatch over the partitioned-matrix types.
 
     Accepts :class:`~sparse_tpu.parallel.pcsr.PCSR` (all-gather baseline),
-    :class:`HaloPCSR` (halo all_to_all), :class:`HaloPCSROverlap`
-    (overlapped halo), or :class:`HaloSegtile` (halo + the segment-tile
-    Pallas kernel per shard — the fast path).  All share the padded
-    row-sharded vector convention, so the distributed solvers
-    (parallel/cg.py) take any of them: partition once with the structure
-    the pattern supports, and every solver's matvec inherits that rate."""
+    :class:`HaloPCSR` (halo all_to_all) or :class:`HaloPCSROverlap`
+    (overlapped halo).  All share the padded row-sharded vector
+    convention, so the distributed solvers (parallel/cg.py) take any of
+    them: partition once with the structure the pattern supports."""
     from .pcsr import PCSR, pcsr_spmv
 
-    if isinstance(a, HaloSegtile):
-        return halo_spmv_segtile(a, v, mesh)
     if isinstance(a, HaloPCSROverlap):
         return halo_spmv_overlapped(a, v, mesh)
     if isinstance(a, HaloPCSR):

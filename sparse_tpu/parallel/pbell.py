@@ -4,7 +4,7 @@ BSR partitioning; this is the BSR-family variant, stored as BELL so each
 shard runs the scatter-free blocked kernel locally).
 
 Same communication structure as ``pcsr``: operand sharded over the mesh
-axis, one ICI all-gather inside ``shard_map``, outputs stay row-sharded.
+axis, one all-gather inside ``shard_map``, outputs stay row-sharded.
 """
 
 from __future__ import annotations

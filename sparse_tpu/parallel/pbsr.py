@@ -6,8 +6,8 @@ over a 1-D mesh.  The communication step is a *values-only* padded
 ``all_to_all`` of exactly the remote B block rows each shard's A column
 pattern touches (blocks a shard already owns never enter the collective);
 the numeric step is the single-device prepared block apply run per shard
-— flat (F, bsz^2) products for small blocks, batched MXU einsum above
-(formats/bsr.py), so the measured block-path rates extend across the mesh.
+— flat (F, bsz^2) products for small blocks, a batched einsum above
+(formats/bsr.py).
 
 Everything index-shaped is resolved host-side once per (pattern pair,
 mesh) in :func:`build_pbsr_smsmm_plan`; the runtime step is one gather +
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import shard_map
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..formats.bsr import BSR, _flat_block_products
 from ..ops.segmented import INDEX_DTYPE, segment_sum
@@ -39,9 +39,6 @@ __all__ = [
     "PBsrSmsmmPlan",
     "build_pbsr_smsmm_plan",
     "pbsr_smsmm",
-    "PBsrPallasPlan",
-    "build_pbsr_smsmm_plan_pallas",
-    "pbsr_smsmm_pallas",
 ]
 
 
@@ -350,8 +347,7 @@ def _pbsr_smsmm_exec(a_blocks_g, b_blocks_g, send_pos_g, a_pos_g, b_pos_g,
     b2 = bsz * bsz
 
     def body(a_blocks, b_blocks, send_pos, a_pos, b_pos, seg):
-        # flat block storage everywhere: (N, bsz, bsz) gather/scatter temps
-        # tile-pad 16-64x at small bsz (docs/performance.md)
+        # flat (N, bsz^2) block storage for the gathers and the exchange
         fa = jnp.concatenate(
             [a_blocks[0].reshape(-1, b2), jnp.zeros((1, b2), dtype)])
         fb_loc = b_blocks[0].reshape(-1, b2)
@@ -384,176 +380,3 @@ def _pbsr_smsmm_exec(a_blocks_g, b_blocks_g, send_pos_g, a_pos_g, b_pos_g,
         out_specs=P(ax),
     )
     return f(a_blocks_g, b_blocks_g, send_pos_g, a_pos_g, b_pos_g, seg_g)
-
-
-# ---------------------------------------------------------------------------
-# Distributed block SpGEMM through the DMA-slab Pallas kernel.
-#
-# pbsr_smsmm's per-shard numeric step is the flat/einsum XLA apply — the
-# gather-bound path the single-device bsr_smsmm_apply_pallas beats 4.7x
-# (340-351 GFLOP/s, docs/performance.md).  This variant stacks per-shard
-# slab schedules with the step/slab layout EQUALIZED across shards
-# (ops.pallas_bsr.schedule_stacked) so shard_map traces one kernel, and
-# runs the DMA-gathered slab kernel per shard right after the values-only
-# block exchange — the distributed layer inherits the measured rate.
-# ---------------------------------------------------------------------------
-
-
-@partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["send_pos", "a_idx", "b_idx", "oloc", "first", "slab",
-                 "out_indices"],
-    meta_fields=["exch", "chunks", "g", "p", "nbz_out", "n", "bsz", "axis",
-                 "rows_per_shard"],
-)
-@dataclasses.dataclass(frozen=True)
-class PBsrPallasPlan:
-    """Stacked DMA-slab schedule for :func:`pbsr_smsmm_pallas`.
-
-    ``a_idx``/``b_idx``/``oloc``: (D, S*g) per-shard factor-slot / output-
-    row tables (b slots index the combined ``[recv | local | zero]``
-    storage); ``first``/``slab``: (S,) SHARED step layout (replicated on
-    the mesh); ``send_pos``/``out_indices`` as in :class:`PBsrSmsmmPlan`."""
-
-    send_pos: jax.Array
-    a_idx: jax.Array
-    b_idx: jax.Array
-    oloc: jax.Array
-    first: jax.Array
-    slab: jax.Array
-    out_indices: jax.Array
-    exch: int
-    chunks: tuple
-    g: int
-    p: int
-    nbz_out: int
-    n: int
-    bsz: int
-    axis: str
-    rows_per_shard: int
-
-    @property
-    def comm_entries_per_device(self) -> int:
-        """Exchanged VALUES per device (block count x bsz^2)."""
-        return self.send_pos.shape[1] * self.exch * self.bsz * self.bsz
-
-
-def build_pbsr_smsmm_plan_pallas(a: PBSR, b: PBSR, mesh: Mesh,
-                                 g: int | None = None,
-                                 p: int | None = None) -> PBsrPallasPlan:
-    """Host-side symbolic pass + stacked slab schedule (eager, once per
-    pattern pair + mesh).  Same exchange structure as
-    :func:`build_pbsr_smsmm_plan`; the numeric schedule is the DMA-slab
-    layout of :func:`~sparse_tpu.ops.pallas_bsr.bsr_smsmm_pallas_prepare`
-    with per-slab step counts equalized across shards."""
-    from ..ops.pallas_bsr import schedule_stacked
-
-    send_lists, scheds, exch, _cap, nbz_out = _pbsr_symbolic(a, b)
-    d, rb, nb, bsz = a.n_shards, a.rows_per_shard, a.nb, a.bsz
-    nbz_p_a, nbz_p_b = a.nbz_per_shard, b.nbz_per_shard
-
-    a_idx, b_idx, oloc, first, slab, chunks, g, p = schedule_stacked(
-        [s[2] for s in scheds],   # out slot = segment id
-        [s[0] for s in scheds],   # A storage slot
-        [s[1] for s in scheds],   # combined-B storage slot
-        nbz_p_a, d * exch + nbz_p_b, nbz_out, g, p, bsz,
-    )
-    send_pos = np.full((d, d, exch), nbz_p_b, np.int32)  # pad: zero slot
-    out_indices = np.full((d, nbz_out), rb * nb, np.int64)
-    for t in range(d):
-        for s in range(d):
-            if s == t:
-                continue
-            _, pos = send_lists[s][t]
-            send_pos[s, t, : pos.size] = pos
-        out_indices[t, : scheds[t][3].size] = scheds[t][3]
-
-    idt = np.int32 if rb * nb <= np.iinfo(np.int32).max else np.int64
-    put = lambda x: put_sharded(x, mesh, a.axis)
-    rep = NamedSharding(mesh, P())
-    return PBsrPallasPlan(
-        send_pos=put(send_pos),
-        a_idx=put(a_idx),
-        b_idx=put(b_idx),
-        oloc=put(oloc),
-        first=jax.device_put(jnp.asarray(first), rep),
-        slab=jax.device_put(jnp.asarray(slab), rep),
-        out_indices=put(out_indices.astype(idt)),
-        exch=exch,
-        chunks=chunks,
-        g=g,
-        p=p,
-        nbz_out=nbz_out,
-        n=a.n,
-        bsz=bsz,
-        axis=a.axis,
-        rows_per_shard=rb,
-    )
-
-
-def pbsr_smsmm_pallas(a: PBSR, b: PBSR, mesh: Mesh,
-                      plan: PBsrPallasPlan) -> PBSR:
-    """C = A @ B: values-only all-to-all of needed B block rows + the
-    DMA-slab Pallas kernel per shard.  Same semantics as
-    :func:`pbsr_smsmm`; the numeric step runs at the measured single-chip
-    slab-kernel rate (docs/performance.md) instead of the XLA gather wall.
-    Off-TPU backends run the kernel in interpret mode (CPU-mesh tests,
-    dryrun)."""
-    interpret = jax.default_backend() != "tpu"
-    blocks = _pbsr_smsmm_pallas_exec(
-        a.blocks, b.blocks, plan.send_pos, plan.a_idx, plan.b_idx,
-        plan.oloc, plan.first, plan.slab,
-        mesh=mesh, ax=a.axis, bsz=a.bsz, nbz_out=plan.nbz_out,
-        chunks=plan.chunks, g=plan.g, p=plan.p,
-        dtype=jnp.result_type(a.dtype, b.dtype), interpret=interpret,
-    )
-    return PBSR(
-        indices=plan.out_indices,
-        blocks=blocks,
-        n=a.n,
-        bsz=a.bsz,
-        axis=a.axis,
-        rows_per_shard=a.rows_per_shard,
-    )
-
-
-@partial(jax.jit, static_argnames=("mesh", "ax", "bsz", "nbz_out", "chunks",
-                                   "g", "p", "dtype", "interpret"))
-def _pbsr_smsmm_pallas_exec(a_blocks_g, b_blocks_g, send_pos_g, a_idx_g,
-                            b_idx_g, oloc_g, first_r, slab_r, *, mesh, ax,
-                            bsz, nbz_out, chunks, g, p, dtype, interpret):
-    from ..ops.pallas_bsr import run_slabs_arrays
-
-    b2 = bsz * bsz
-
-    def body(a_blocks, b_blocks, send_pos, a_idx, b_idx, oloc, first, slab):
-        # exchange in flat (N, b2) layout: gather/all_to_all temps around
-        # (N, bsz, bsz) arrays tile-pad 4-64x (docs/performance.md)
-        fb_loc = b_blocks[0].reshape(-1, b2)
-        fb_send = jnp.concatenate([fb_loc, jnp.zeros((1, b2), dtype)])
-        send_buf = fb_send[send_pos[0]]  # (D, E, b2)
-        recv = jax.lax.all_to_all(send_buf, ax, split_axis=0, concat_axis=0)
-        comb = jnp.concatenate(
-            [recv.reshape(-1, b2), fb_loc, jnp.zeros((1, b2), dtype)]
-        ).astype(dtype).reshape(-1, bsz, bsz)
-        za = jnp.concatenate(
-            [a_blocks[0].astype(dtype),
-             jnp.zeros((1, bsz, bsz), dtype)])
-        prec = (jax.lax.Precision.HIGHEST
-                if jnp.dtype(dtype) == jnp.float32 else None)
-        out = run_slabs_arrays(
-            a_idx[0], b_idx[0], oloc[0], first, slab, za, comb,
-            chunks=chunks, bsz=bsz, g=g, p=p, nbz_out=nbz_out,
-            out_dtype=dtype, precision=prec, interpret=interpret,
-        )
-        return out[None]
-
-    f = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(ax),) * 6 + (P(), P()),
-        out_specs=P(ax),
-        check_vma=False,
-    )
-    return f(a_blocks_g, b_blocks_g, send_pos_g, a_idx_g, b_idx_g, oloc_g,
-             first_r, slab_r)

@@ -1,7 +1,7 @@
 """Row-partitioned CSR over a 1-D device mesh: the multi-chip layer.
 
 The reference has **no** distributed support of any kind (SURVEY.md §2.3);
-this is the TPU-native scaling layer the north star adds (BASELINE.md,
+this is the multi-device scaling layer the north star adds (BASELINE.md,
 config 5): the sparse analogue of data/tensor parallelism is *row
 partitioning* of the sparse operand with the dense operand sharded to match.
 
@@ -13,7 +13,7 @@ Design:
   holds exactly its row slab in HBM.
 * ``pcsr_spmv``/``pcsr_spmm`` run under ``shard_map``: the dense operand is
   sharded over the same axis; each device ``all_gather``\\ s the full operand
-  over ICI (ring all-gather compiled by XLA) and computes its local row slab.
+  between devices (all-gather compiled by XLA) and computes its local row slab.
   Outputs stay row-sharded — chaining ops never leaves the device.
 * Rows and capacities are padded so every device does identical static-shape
   work (no stragglers at the XLA level; load balance is a partitioning-time
@@ -181,8 +181,8 @@ def _pcsr_spmv_exec(data, indices, indptr, v, *, mesh, ax):
 
 
 def pcsr_spmv(a: PCSR, v: jax.Array, mesh: Mesh) -> jax.Array:
-    """Distributed SpMV: ``v`` sharded over the mesh axis; all-gather over
-    ICI, local slab SpMV; output stays row-sharded.  Returns the padded
+    """Distributed SpMV: ``v`` sharded over the mesh axis; all-gather,
+    local slab SpMV; output stays row-sharded.  Returns the padded
     (rows_p * D,) vector — slice to ``a.shape[0]`` for the logical result."""
     return _pcsr_spmv_exec(
         a.data, a.indices, a.indptr, v, mesh=mesh, ax=a.axis

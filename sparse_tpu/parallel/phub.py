@@ -1,27 +1,18 @@
 """Distributed hub/tail SpMV: partition the power-law class across a mesh.
 
-The single-chip answer for webbase-class graphs is the hub/tail split
-(ops/hub_split.py: top-degree column strip through segment tiles, tail on
-the XLA path — 1.36-1.46x the fallback).  At scale the class "belongs to
-the distributed layer" (docs/performance.md): this module row-partitions
-the matrix and keeps the hub structure per shard:
+Power-law (webbase-class) graphs have no locality a halo could exploit: a
+row slab's columns span the whole column space.  What the class does have
+is a heavy-tailed degree distribution — a thin strip of hub columns
+carries a disproportionate share of the entries.  This module
+row-partitions the matrix and splits each shard's slab into hub and tail:
 
-* every shard holds its ROW slab split hub/tail exactly as the
-  single-chip path does (hub entries remapped into the shared
-  degree-ordered compact space);
-* the hub OPERAND — the H top-degree entries of ``v``, which every shard
-  references — is assembled by ONE ``all_gather`` of each shard's owned
-  hub entries: **O(H) comm per device** (64 KB at H=16384), vs O(m) for
-  the all-gather baseline;
-* the tail reads only LOCAL operand entries by construction?  No — tail
-  columns are arbitrary, so the tail uses the standard halo machinery?
-  Also no: on power-law patterns the tail's column support is dense in m
-  (that is WHY locality layouts fail), so a halo would approach O(m)
-  anyway.  The tail therefore all-gathers the full operand — the honest
-  O(m) term this class cannot avoid — while the hub third of the mass
-  rides the tile kernel.  What the split buys at scale is the same thing
-  it buys on one chip (the hub mass leaves the gather wall), plus the
-  row-partitioned compute/memory scaling.
+* hub entries are remapped into a shared compact space ordered by
+  descending degree; the hub OPERAND — the H top-degree entries of ``v``,
+  which every shard references — is assembled by ONE ``all_gather`` of
+  each shard's owned hub entries: **O(H) comm per device**;
+* the tail's column support is dense in m on this class (that is why
+  locality layouts fail), so the tail all-gathers the full operand — the
+  honest O(m) term this class cannot avoid.
 
 Comm accounting per device: ``H + m`` operand entries (vs ``m`` for
 plain ``pcsr_spmv``) — the O(H) hub term is pinned by
@@ -45,7 +36,10 @@ from ..formats.csr import CSR
 from ..ops.segmented import segment_sum
 from .pcsr import put_sharded
 
-__all__ = ["PHubSplit", "phub_partition", "phub_spmv"]
+__all__ = ["PHubSplit", "phub_partition", "phub_spmv", "DEFAULT_HUB_COLS"]
+
+#: Default hub-strip width (columns).
+DEFAULT_HUB_COLS = 16384
 
 
 @partial(
@@ -93,8 +87,9 @@ class PHubSplit:
 def phub_partition(a: CSR, mesh: Mesh, axis: str = "shards",
                    max_hub_cols: int | None = None) -> PHubSplit:
     """Eager host split (once per pattern + mesh): contiguous row slabs;
-    hubs = the ``max_hub_cols`` highest-degree columns, compact space
-    ordered by descending degree (the measured single-chip layout)."""
+    hubs = the ``max_hub_cols`` highest-degree columns (default
+    :data:`DEFAULT_HUB_COLS`), compact space ordered by descending
+    degree."""
     n, m = a.shape
     d = mesh.shape[axis]
     rows_p = -(-max(n, 1) // d)
@@ -104,8 +99,6 @@ def phub_partition(a: CSR, mesh: Mesh, axis: str = "shards",
     cols = np.asarray(a.indices[:k], np.int64)
     data = np.asarray(a.data[:k])
     rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-
-    from ..ops.hub_split import DEFAULT_HUB_COLS
 
     H = min(max_hub_cols if max_hub_cols is not None else DEFAULT_HUB_COLS,
             m)
@@ -194,11 +187,8 @@ def _phub_spmv_exec(hd, hi, hr, td, ti, tr, own, v, *, mesh, ax, rows_p):
 def phub_spmv(a: PHubSplit, v: jax.Array, mesh: Mesh) -> jax.Array:
     """Distributed hub/tail SpMV; ``v`` sharded to ``cols_per_shard * D``
     (``shard_vector``), output padded row-sharded.  The hub mass rides the
-    O(H) assembled operand; on a real multi-chip mesh the per-shard hub
-    compute takes the segment-tile treatment exactly as the single-chip
-    split does (the local formulation here is the scalar reference one —
-    correct on any backend, and the hub/tail comm structure is what this
-    layer pins)."""
+    O(H) assembled operand; the per-shard compute is a gather +
+    segment-sum for both parts."""
     return _phub_spmv_exec(
         a.hub_data, a.hub_idx, a.hub_rows,
         a.tail_data, a.tail_idx, a.tail_rows,

@@ -3,7 +3,7 @@
 SURVEY.md §2.3(3): distributed SpGEMM via operand redistribution.  1-D
 row-partition algebra: ``C_i = A_i @ B`` — each shard's output row slab needs
 *all* of B, so the communication step is an all-gather of B's (padded,
-per-shard) CSR arrays over ICI; the compute step is the same jit ESC core as
+per-shard) CSR arrays between devices; the compute step is the same jit ESC core as
 single-device SpGEMM (``ops/spgemm.spgemm_products``), fed the gathered
 storage through its generalized (starts, lengths) row interface so per-shard
 padding gaps need no repacking.  Output stays row-partitioned — chained

@@ -1,6 +1,6 @@
 """Block-sparse LU factorization and direct solver for BSR matrices.
 
-TPU-native re-design of the reference's solver stack
+A re-design of the reference's solver stack
 (blocked_square_regular.fut:366-603): right-looking block LU with
 block-limited partial pivoting, symbolic fill-in analysis, factor extraction,
 block triangular solves, and the direct solver ``ols``.
@@ -10,7 +10,7 @@ discovery, per-step block plans) runs host-side in NumPy once per pattern,
 exactly like real sparse direct solvers separate symbolic and numeric phases.
 The numeric phase then executes on device with static gather/scatter index
 plans: per block column, one dense ``lup_dense`` of the diagonal block, one
-batched triangular solve for the column/row panels (vmap -> MXU), and one
+batched triangular solve for the column/row panels (vmap), and one
 batched Schur-complement einsum.  The sequential critical path over block
 columns (inherent to right-looking LU, see SURVEY.md §3.3) stays as a host
 loop over ``nb`` steps; all heavy math per step is batched device work.
@@ -216,7 +216,7 @@ def _lu_numeric(a: BSR, pivot: bool) -> tuple[BSR, jax.Array]:
     ``lu_nofill`` (:502-546).  The sparsity pattern is static, so the whole
     factorization compiles to ONE ``lax.fori_loop`` over block columns: per
     step, a dense ``lup_dense`` of the diagonal block, vmapped triangular
-    solves of the padded column/row panels (MXU-batched), and one batched
+    solves of the padded column/row panels (batched), and one batched
     Schur einsum on the padded pair plan — fully on-device, no host sync.
     """
     return _lu_steps(a, bsr_lu_numeric_prepare(a), pivot)

@@ -1,8 +1,8 @@
 """Preconditioners for the iterative solvers.
 
-Block-Jacobi is the TPU-natural step up from elementwise Jacobi: setup is
-one scatter into batched dense diagonal blocks plus a batched inverse (MXU
-work), and application is a batched (bs, bs) matvec — no sparse triangular
+Block-Jacobi is the batched step up from elementwise Jacobi: setup is
+one scatter into batched dense diagonal blocks plus a batched inverse (dense
+matmul work), and application is a batched (bs, bs) matvec — no sparse triangular
 solve on the critical path, fully jit-compatible, and GSPMD partitions the
 batched apply cleanly when blocks align with shard boundaries (choose ``bs``
 dividing the padded rows-per-shard).

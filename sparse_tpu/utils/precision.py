@@ -1,18 +1,19 @@
-"""MXU precision policy: correct-by-default f32 contractions.
+"""Precision policy: correct-by-default f32 contractions.
 
-On TPU, XLA's default precision for a float32 ``dot_general`` is a SINGLE
-bf16 MXU pass — ~3 decimal digits short of f32 (measured 1.2e-2 relative
-error on the bench SpMM vs 3e-7 for the full-precision path).  A sparse
-*linear-algebra* library cannot silently ship that: the reference's own
-test tolerances (P·A ≈ L·U at eps=6e-5, blocked_square_regular_test.fut:250)
-are unreachable under one-pass bf16 at any real size.
+On an NVIDIA GPU a float32 ``dot_general`` at default precision may run in
+TF32, which keeps 10 mantissa bits — about three decimal digits short of
+f32.  A sparse *linear-algebra* library cannot silently ship that: the
+reference's own test tolerances (P·A ≈ L·U at eps=6e-5,
+blocked_square_regular_test.fut:250) are unreachable at TF32 on real
+sizes.
 
 Every matmul/einsum in the library therefore passes
-``precision=matmul_precision(dtype)``: full f32 (``HIGHEST``, 6 passes) for
-f32 contractions, and the hardware default for everything else (bf16 inputs
-already multiply exactly on the MXU; f64 is software-emulated).  The
-explicit mixed-precision fast path (``compute_dtype=jnp.bfloat16`` on the
-BELL kernels) is the supported way to trade digits for bandwidth.
+``precision=matmul_precision(dtype)``: full f32 (``HIGHEST``) for f32
+contractions, and the default for everything else (bf16 inputs multiply
+exactly with f32 accumulation; f64 has no reduced mode).  The Triton
+blocked-ELL kernel applies the same rule (ops/pallas_bell.py).  The
+explicit mixed-precision path (``compute_dtype=jnp.bfloat16`` on
+``bell_spmm``) is the supported way to trade digits for bandwidth.
 """
 
 from __future__ import annotations

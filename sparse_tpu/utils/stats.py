@@ -15,12 +15,7 @@ from ..formats.csr import CSR
 
 __all__ = ["matrix_stats", "spmv_bytes", "roofline_report",
            "bell_stats", "BellStats", "csr_block_fill", "detect_block_size",
-           "HBM_CEILING_GBPS", "csr_min_bytes", "blocked_min_bytes",
-           "nnz_roofline"]
-
-#: Streaming HBM ceiling measured on the target v5e (chained axpy,
-#: docs/performance.md) — the denominator of every roofline fraction.
-HBM_CEILING_GBPS = 207.0
+           "csr_min_bytes", "blocked_min_bytes", "nnz_roofline"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +55,7 @@ def matrix_stats(a: CSR) -> MatrixStats:
 
 
 def spmv_bytes(a: CSR, k: int = 1, value_bytes: int | None = None) -> int:
-    """Minimum HBM traffic of one SpMV/SpMM: values + column indices + one
+    """Device-memory traffic of one SpMV/SpMM: values + column indices + one
     gathered operand row per stored entry + row pointers + output."""
     vb = value_bytes or np.dtype(np.asarray(a.data).dtype).itemsize
     nse = int(np.asarray(a.indptr)[-1])
@@ -70,8 +65,8 @@ def spmv_bytes(a: CSR, k: int = 1, value_bytes: int | None = None) -> int:
 
 def roofline_report(a: CSR, seconds: float, k: int = 1,
                     hbm_gbps: float | None = None) -> dict:
-    """Achieved effective bandwidth (and roofline fraction when the chip's
-    HBM bandwidth is supplied) for a measured SpMV/SpMM time."""
+    """Achieved effective bandwidth (and roofline fraction when the card's
+    memory bandwidth is supplied) for a measured SpMV/SpMM time."""
     b = spmv_bytes(a, k)
     gbps = b / seconds / 1e9
     nse = int(np.asarray(a.indptr)[-1])
@@ -86,13 +81,13 @@ def roofline_report(a: CSR, seconds: float, k: int = 1,
 
 
 def csr_min_bytes(a: CSR, k: int = 1) -> int:
-    """Pattern-INTRINSIC minimum HBM bytes of one SpMV/SpMM: every stored
-    value read once, every DISTINCT operand entry read once (column reuse
-    is creditable — a perfect kernel caches it in VMEM), every output entry
-    written once.  Index/metadata traffic is EXCLUDED: it is plan-dependent
-    (banded/BELL plans encode structure implicitly at 0 B/nnz, the
-    segment-tile plan pays 5 B/slot, CSR gathers pay 4 B/nnz) and belongs
-    to the *plan* term of :func:`nnz_roofline`.  This is the denominator of
+    """Pattern-INTRINSIC minimum device-memory bytes of one SpMV/SpMM:
+    every stored value read once, every DISTINCT operand entry read once
+    (column reuse is creditable — a perfect kernel serves it from cache),
+    every output entry written once.  Index/metadata traffic is EXCLUDED:
+    it is plan-dependent (BELL encodes structure at 4 B per block, CSR
+    gathers pay 4 B/nnz) and belongs to the *plan* term of
+    :func:`nnz_roofline`.  This is the denominator of
     the BASELINE "%% of memory-roofline nnz/s" target: no kernel for this
     pattern can move fewer bytes."""
     vb = np.dtype(np.asarray(a.data).dtype).itemsize
@@ -117,25 +112,21 @@ def blocked_min_bytes(stored_blocks: int, bsz: int, n: int, k: int = 1,
 
 
 def nnz_roofline(nnz: int, k: int = 1, *, min_bytes: int,
-                 hbm_gbps: float = HBM_CEILING_GBPS,
+                 hbm_gbps: float,
                  plan_bytes: int | None = None,
-                 issue_s: float | None = None,
                  seconds: float | None = None) -> dict:
     """The nnz/s roofline model (BASELINE config 2/3's target metric).
 
     ``min_bytes`` (:func:`csr_min_bytes` / :func:`blocked_min_bytes`) sets
-    the pattern-intrinsic ceiling: ``ceiling_gnnzps = hbm_gbps * nnz * k /
-    min_bytes``.  A specific plan adds two optional floors on its
-    achievable time — ``plan_bytes`` (the traffic it actually moves,
-    e.g. 5 B/slot segment tiles or densified banded tiles) and ``issue_s``
-    (a measured issue-rate wall, e.g. the segment-tile ~46 ns/vreg cost,
-    docs/performance.md) — giving ``plan_ceiling_gnnzps`` and the
-    machine-checkable ``structural_frac = plan_ceiling / ceiling``: the
-    fraction of the pattern roofline THIS plan can reach even at perfect
-    execution.  With ``seconds``: ``achieved_gnnzps``,
-    ``frac_of_nnz_roofline`` (vs the intrinsic ceiling — the BASELINE
-    number) and ``frac_of_plan_ceiling`` (vs the plan's own bound —
-    execution quality)."""
+    the pattern-intrinsic ceiling at the card's memory bandwidth
+    ``hbm_gbps`` (GB/s, from the benchmark's peak table or a copy measured
+    in the same run): ``ceiling_gnnzps = hbm_gbps * nnz * k / min_bytes``.
+    ``plan_bytes`` (the traffic a specific plan actually moves) adds
+    ``plan_ceiling_gnnzps`` and ``structural_frac = plan_ceiling /
+    ceiling``: the fraction of the pattern roofline THIS plan can reach
+    even at perfect execution.  With ``seconds``: ``achieved_gnnzps``,
+    ``frac_of_nnz_roofline`` (vs the intrinsic ceiling) and
+    ``frac_of_plan_ceiling`` (vs the plan's own bound)."""
     eff = nnz * k
     t_intr = min_bytes / (hbm_gbps * 1e9)
     out = {
@@ -144,15 +135,10 @@ def nnz_roofline(nnz: int, k: int = 1, *, min_bytes: int,
         "ceiling_gnnzps": eff / t_intr / 1e9 if t_intr else float("inf"),
     }
     t_plan = None
-    if plan_bytes is not None or issue_s is not None:
-        t_plan = max(
-            (plan_bytes / (hbm_gbps * 1e9)) if plan_bytes is not None else 0.0,
-            issue_s or 0.0,
-        )
+    if plan_bytes is not None:
+        t_plan = plan_bytes / (hbm_gbps * 1e9)
         out["plan_ceiling_gnnzps"] = eff / t_plan / 1e9 if t_plan else float("inf")
-        out["structural_frac"] = (
-            t_intr / t_plan if t_plan else 1.0
-        )
+        out["structural_frac"] = t_intr / t_plan if t_plan else 1.0
     if seconds:
         out["achieved_gnnzps"] = eff / seconds / 1e9
         out["frac_of_nnz_roofline"] = t_intr / seconds
@@ -168,10 +154,9 @@ def csr_block_fill(a: CSR, bsz: int) -> float:
     1.0 means every touched block is fully stored — re-blocking to BSR/BELL
     at this bsz costs ZERO storage blow-up and (for SpGEMM) preserves the
     reference's exact stored-structure semantics; low values mean the
-    bsz^2/fill blow-up would eat the block paths' granule win
-    (docs/performance.md "Block SpGEMM").  Operates on the stored pattern
-    (explicit zeros count as stored, matching compressed.fut:162-164's
-    storage notion)."""
+    bsz^2/fill blow-up would eat the block paths' granule win.  Operates
+    on the stored pattern (explicit zeros count as stored, matching
+    compressed.fut:162-164's storage notion)."""
     n, m = a.shape
     if bsz <= 0 or n % bsz or m % bsz:
         return 0.0
@@ -200,7 +185,7 @@ def detect_block_size(a: CSR, candidates=(8, 4, 2),
     With the default ``min_fill=1.0`` this finds *natural* block structure
     (vector-valued FEM: 2x2/3x3 dofs per mesh node) where re-blocking is
     free and exact; the dispatchers use it to route clustered matrices onto
-    the measured ~900x block SpGEMM / MXU paths automatically."""
+    the block SpGEMM / BELL paths automatically."""
     for bsz in sorted(set(candidates), reverse=True):
         if bsz < 2:
             continue

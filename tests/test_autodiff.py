@@ -1,7 +1,7 @@
 """Differentiability and vmap-ability of the core ops.
 
 Pure-functional pytree formats mean JAX transforms compose for free — a
-TPU-first capability with no reference counterpart (Futhark has no AD in the
+capability with no reference counterpart (Futhark has no AD in the
 reference).  Gradients are checked against finite differences / analytic
 forms."""
 

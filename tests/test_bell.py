@@ -76,9 +76,8 @@ def test_bell_from_csr_reblock():
 
 @pytest.mark.parametrize("n,bsz,density", [(32, 4, 0.4), (64, 8, 0.2)])
 def test_bell_smvm_jit_argument(n, bsz, density):
-    """bell_smvm is the single production BELL SpMV path (the prepare split
-    measured no better on-chip and was deleted, docs/performance.md); the
-    BELL itself is a pytree usable as a jit argument."""
+    """bell_smvm is the single production BELL SpMV path; the BELL itself
+    is a pytree usable as a jit argument."""
     a, xa = random_bsr(n, bsz, density, seed=7 * n)
     e = bell_from_bsr(a)
     v = jnp.asarray(np.random.default_rng(3).standard_normal(n))

@@ -1,7 +1,7 @@
 """BSR format: conformance against the reference's test suite
 (blocked_square_regular_test.fut) — golden vectors, algebraic identities, and
-dense-oracle properties, at bsz=2 (reference config) and larger TPU-friendly
-block sizes."""
+dense-oracle properties, at bsz=2 (reference config) and larger block
+sizes."""
 
 import jax
 import jax.numpy as jnp
@@ -313,8 +313,8 @@ def test_bsr_smsmm_plan_matches_and_updates():
 
 def test_csr_to_bsr_roundtrip_and_block_spgemm_routing():
     """csr_to_bsr re-blocks a scalar CSR exactly, and the blocked SpGEMM on
-    the re-blocked operands matches the scalar product (the TPU routing
-    recipe for clustered patterns — docs/performance.md)."""
+    the re-blocked operands matches the scalar product (the block route
+    ``spgemm`` takes for clustered patterns)."""
     from sparse_tpu import csr_from_dense, csr_to_bsr, bsr_smsmm, spgemm
 
     rng = np.random.default_rng(42)

@@ -214,7 +214,7 @@ def test_vmap_smvm():
 
 
 def test_grad_through_smvm():
-    # TPU-native bonus: formats are pytrees, so AD flows through values.
+    # formats are pytrees, so AD flows through values.
     A = st.csr_from_triples(2, 2, [(0, 0, 2.0), (1, 1, 3.0)], dtype=np.float64)
 
     def loss(data):

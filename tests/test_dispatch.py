@@ -1,142 +1,113 @@
 """One-call SpMV dispatch (ops/dispatch.py): the ladder picks the right
-path per structure class, and every path's apply matches csr_smvm.
-(Selection gates are TPU-preferring; `prefer` pins rungs for CPU testing,
-with Pallas paths in interpret mode.)"""
+rung per structure class, and every rung's apply matches SciPy."""
 
+import sys
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 
 import sparse_tpu as st
 from sparse_tpu.ops.dispatch import smvm_prepare
 
-
-def _apply_and_check(plan, x, rtol=2e-4):
-    rng = np.random.default_rng(1)
-    v = rng.standard_normal(x.shape[1]).astype(np.float32)
-    y = np.asarray(plan.apply(jnp.asarray(v)))
-    np.testing.assert_allclose(y, x @ v, rtol=rtol, atol=rtol)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "benchmarks"))
+import gen_fixtures  # noqa: E402
 
 
-def test_dispatch_blockseg():
-    from tests.test_pallas_csr_block import _block_matrix
-
-    x = _block_matrix(64, 2, seed=0, per_row=4, bw=6)
-    a = st.csr_from_dense(jnp.asarray(x))
-    # structure gate fires with prefer (TPU-gated by default on CPU)
-    plan = smvm_prepare(a, prefer="blockseg")
-    assert plan.kind == "blockseg" and plan.perm is not None
-    _apply_and_check(plan, x)
-    # permute-free space matches the reordered operator
-    rng = np.random.default_rng(2)
-    v = rng.standard_normal(128).astype(np.float32)
-    perm_scalar = np.stack([2 * np.asarray(plan.perm),
-                            2 * np.asarray(plan.perm) + 1], -1).reshape(-1)
-    yp = np.asarray(plan.apply_permuted(jnp.asarray(v)))
-    ref = x[np.ix_(perm_scalar, perm_scalar)] @ v
-    np.testing.assert_allclose(yp, ref, rtol=2e-4, atol=2e-4)
+def _block_matrix(nb, bsz, seed, per_row=3):
+    """Square matrix of dense bsz x bsz blocks, a few per block row."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((nb, nb), bool)
+    for r in range(nb):
+        mask[r, rng.choice(nb, size=min(per_row, nb), replace=False)] = True
+    x = rng.standard_normal((nb * bsz, nb * bsz)) * np.kron(
+        mask, np.ones((bsz, bsz)))
+    return sp.csr_matrix(x.astype(np.float32))
 
 
-def test_dispatch_segtile_and_xla():
-    rng = np.random.default_rng(3)
-    n = 120
-    x = np.zeros((n, n), np.float32)
-    for i in range(n):
-        js = np.clip(i + rng.integers(-8, 9, size=4), 0, n - 1)
-        x[i, js] = rng.standard_normal(js.size)
-    a = st.csr_from_dense(jnp.asarray(x))
-    plan = smvm_prepare(a, prefer="segtile")
-    assert plan.kind == "segtile"
-    _apply_and_check(plan, x)
-    # default ladder on CPU lands on the XLA path (TPU-only rungs gated)
-    plan2 = smvm_prepare(a)
-    assert plan2.kind == "xla"
-    _apply_and_check(plan2, x)
+def _band(n, hw, seed):
+    rng = np.random.default_rng(seed)
+    return sp.diags([rng.standard_normal(n - abs(o)).astype(np.float32)
+                     for o in range(-hw, hw + 1)],
+                    list(range(-hw, hw + 1)), format="csr")
+
+
+def _empty_rows(seed):
+    s = sp.random(96, 96, density=0.06, random_state=seed, format="lil",
+                  dtype=np.float32)
+    s[10:20, :] = 0
+    return s.tocsr()
+
+
+ZOO = {
+    "band": lambda: _band(300, 4, 0),
+    "fem_poisson": lambda: gen_fixtures.poisson_fem(600, seed=0),
+    "fem_elasticity": lambda: gen_fixtures.elasticity_fem(300, seed=1),
+    "powerlaw": lambda: gen_fixtures.powerlaw_graph(400, m=4, seed=2),
+    "rectangular": lambda: sp.random(80, 130, density=0.05, random_state=3,
+                                     format="csr", dtype=np.float32),
+    "empty_rows": lambda: _empty_rows(4),
+    "blocks_bsz8": lambda: _block_matrix(12, 8, seed=5),
+    "blocks_bsz16": lambda: _block_matrix(6, 16, seed=6),
+    "blocks_bsz32": lambda: _block_matrix(4, 32, seed=7),
+}
+_BELL = {"blocks_bsz8", "blocks_bsz16", "blocks_bsz32"}
+
+
+def _to_csr(s):
+    s = sp.csr_matrix(s)
+    s.sum_duplicates()
+    return st.CSR(data=jnp.asarray(s.data), indices=jnp.asarray(s.indices),
+                  indptr=jnp.asarray(s.indptr.astype(np.int64)),
+                  shape=s.shape)
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+@pytest.mark.parametrize("prefer", [None, "bell", "xla"])
+def test_smvm_prepare_zoo_matches_scipy(name, prefer):
+    s = ZOO[name]()
+    dtype = np.float64 if jax.config.jax_enable_x64 else np.float32
+    s = sp.csr_matrix(s, dtype=dtype)
+    plan = smvm_prepare(_to_csr(s), prefer=prefer)
+    want_kind = "bell" if (name in _BELL and prefer != "xla") else "xla"
+    assert plan.kind == want_kind
+    v = np.random.default_rng(1).standard_normal(s.shape[1]).astype(dtype)
+    y = np.asarray(jax.jit(lambda p, v: p.apply(v))(plan, jnp.asarray(v)))
+    want = s @ v
+    assert y.shape == (s.shape[0],)
+    np.testing.assert_allclose(y, want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
 
 
 def test_dispatch_bell():
-    from tests.test_pallas_csr_block import _block_matrix
-
-    x = _block_matrix(12, 8, seed=4, per_row=3, bw=4, scramble=False)
-    a = st.csr_from_dense(jnp.asarray(x))
-    plan = smvm_prepare(a)  # bell rung is not TPU-gated
-    assert plan.kind == "bell"
-    _apply_and_check(plan, x)
-
-
-def test_dispatch_hubsplit():
-    import scipy.sparse as sp
-
-    rng = np.random.default_rng(5)
-    n = 2000
-    rows = np.repeat(np.arange(n, dtype=np.int64), 5)
-    cols = (np.minimum(rng.zipf(1.25, rows.size), n) - 1).astype(np.int64)
-    s = sp.coo_matrix(
-        (rng.standard_normal(rows.size).astype(np.float32), (rows, cols)),
-        shape=(n, n)).tocsr()
-    s.sum_duplicates()
-    a = st.CSR(data=jnp.asarray(s.data), indices=jnp.asarray(s.indices),
-               indptr=jnp.asarray(s.indptr.astype(np.int64)), shape=(n, n))
-    plan = smvm_prepare(a, prefer="hubsplit")
-    assert plan.kind == "hubsplit"
-    # the hubsplit APPLY path is oracle-pinned by
-    # test_pallas_csr.test_hub_split_matches_oracle; checking selection +
-    # plan shape here keeps the suite budget (interpret applies are ~10 s)
-    assert plan.state[0].hub_fraction > 0
-
-
-def test_dispatch_hubsplit_glue_applies():
-    """The dispatch glue for the hubsplit rung (state unpacking +
-    interpret flag) on a tiny fixture."""
-    import scipy.sparse as sp
-
-    rng = np.random.default_rng(9)
-    n = 500
-    rows = np.repeat(np.arange(n, dtype=np.int64), 3)
-    cols = (np.minimum(rng.zipf(1.2, rows.size), n) - 1).astype(np.int64)
-    s = sp.coo_matrix(
-        (rng.standard_normal(rows.size).astype(np.float32), (rows, cols)),
-        shape=(n, n)).tocsr()
-    s.sum_duplicates()
-    a = st.CSR(data=jnp.asarray(s.data), indices=jnp.asarray(s.indices),
-               indptr=jnp.asarray(s.indptr.astype(np.int64)), shape=(n, n))
-    plan = smvm_prepare(a, prefer="hubsplit")
-    assert plan.kind == "hubsplit"
-    _apply_and_check(plan, s.toarray())
+    s = _block_matrix(12, 8, seed=4)
+    plan = smvm_prepare(_to_csr(s), verbose=True)
+    assert plan.kind == "bell" and plan.state[0].bsz == 8
+    v = np.random.default_rng(1).standard_normal(s.shape[1]).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(plan.apply(jnp.asarray(v))),
+                               s @ v, rtol=2e-4, atol=2e-4)
 
 
 def test_dispatch_refresh():
-    """smvm_prepare(refreshable=True) -> plan.refresh rebinds values in
-    one device gather (segtile, incl. the composed reorder's value
-    mapping) and trivially for the value-free XLA rung; blocked rungs
-    refuse with guidance."""
-    rng = np.random.default_rng(11)
-    n = 160
-    x = np.zeros((n, n), np.float32)
-    order = rng.permutation(n)  # scrambled band -> dispatch composes RCM
-    for i in range(n):
-        js = np.clip(i + rng.integers(-6, 7, size=4), 0, n - 1)
-        x[order[i], order[js]] = rng.standard_normal(js.size)
-    a = st.csr_from_dense(jnp.asarray(x))
-    plan = smvm_prepare(a, prefer="segtile", refreshable=True)
-    assert plan.kind == "segtile"
-    v = rng.standard_normal(n).astype(np.float32)
-    p2 = plan.refresh(a.data * -1.5)
-    y = np.asarray(p2.apply(jnp.asarray(v)))
-    np.testing.assert_allclose(y, (x * -1.5) @ v, rtol=2e-4, atol=2e-4)
-    # xla rung: value-free plan, refresh replaces the data
+    """plan.refresh rebinds values on the value-free XLA rung; the BELL
+    rung refuses with guidance; a wrong-length value array is refused."""
+    s = _band(160, 3, seed=11)
+    a = _to_csr(s)
     px = smvm_prepare(a, prefer="xla")
+    v = np.random.default_rng(2).standard_normal(160)
     y2 = np.asarray(px.refresh(a.data * 2.0).apply(jnp.asarray(v)))
-    np.testing.assert_allclose(y2, (x * 2.0) @ v, rtol=2e-4, atol=2e-4)
-    # blocked rung refuses with guidance
-    from tests.test_pallas_csr_block import _block_matrix
-
-    xb = _block_matrix(48, 2, seed=1)
-    ab = st.csr_from_dense(jnp.asarray(xb))
-    pb = smvm_prepare(ab, prefer="blockseg")
+    np.testing.assert_allclose(y2, (s * 2.0) @ v, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="data shape"):
+        px.refresh(a.data[:-1])
+    pb = smvm_prepare(_to_csr(_block_matrix(6, 8, seed=1)))
+    assert pb.kind == "bell"
     with pytest.raises(NotImplementedError, match="re-run smvm_prepare"):
-        pb.refresh(ab.data)
-    # non-refreshable segtile plans refuse too
-    p3 = smvm_prepare(a, prefer="segtile")
-    with pytest.raises(ValueError, match="refreshable"):
-        p3.refresh(a.data)
+        pb.refresh(pb.state[0].blocks.reshape(-1))
+
+
+def test_dispatch_rejects_unknown_rung():
+    with pytest.raises(ValueError, match="unknown rung"):
+        smvm_prepare(_to_csr(_band(10, 1, 0)), prefer="segtile")

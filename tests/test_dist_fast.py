@@ -1,9 +1,6 @@
-"""Fast kernels inside shard_map, on the virtual 8-device CPU mesh.
+"""The distributed matvec paths and CG through ``dist_spmv``, on a 4-device
+virtual CPU mesh (the card layout the multi-device path targets).
 
-The distributed layer's per-shard compute must be the measured fast paths
-(segment-tile SpMV, DMA-slab block SpGEMM), not the scalar-gather XLA
-formulations — off-TPU the Pallas kernels run in interpret mode, so these
-tests pin semantics; rates are pinned on-chip by the benchmark suite.
 Oracle style follows the house rules (dense references, cross-path
 agreement); no reference counterpart exists (single-device reference,
 SURVEY.md §2.3).
@@ -14,82 +11,67 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparse_tpu import csr_from_dense, csr_smvm
+from sparse_tpu import csr_from_dense
 from sparse_tpu.formats.bsr import BSR, bsr_todense
 from sparse_tpu.ops.segmented import INDEX_DTYPE
 from sparse_tpu.parallel import (
     build_pbsr_smsmm_plan,
-    build_pbsr_smsmm_plan_pallas,
     cg_solve,
     dist_spmv,
     halo_partition,
-    halo_partition_segtile,
-    halo_spmv,
-    halo_spmv_segtile,
+    halo_partition_overlapped,
     make_1d_mesh,
     pbsr_from_bsr,
     pbsr_smsmm,
-    pbsr_smsmm_pallas,
     pbsr_to_bsr,
     pcsr_from_csr,
 )
 from sparse_tpu.parallel.pcsr import shard_vector
 
+PARTITIONS = {
+    "pcsr": pcsr_from_csr,
+    "halo": halo_partition,
+    "halo_overlap": halo_partition_overlapped,
+}
+
 
 @pytest.fixture(scope="module")
 def mesh():
-    assert len(jax.devices()) >= 8, "expected 8 virtual CPU devices"
-    return make_1d_mesh(8)
+    assert len(jax.devices()) >= 4, "expected virtual CPU devices"
+    return make_1d_mesh(4)
 
 
-def banded_csr(n, seed, bw=12, per_row=6):
+def banded_csr(n, seed, bw=12, per_row=6, rows=None):
     rng = np.random.default_rng(seed)
     x = np.zeros((n, n), np.float32)
-    for i in range(n):
+    for i in range(n if rows is None else rows):
         js = np.clip(i + rng.integers(-bw, bw + 1, size=per_row), 0, n - 1)
         x[i, js] = rng.standard_normal(js.size)
     return csr_from_dense(jnp.asarray(x)), x
 
 
-def test_halo_segtile_matches_oracle_and_halo(mesh):
-    a, x = banded_csr(200, seed=0)
-    hs = halo_partition_segtile(a, mesh)
-    assert hs.fill > 0  # every shard produced a real plan
+@pytest.mark.parametrize("kind", sorted(PARTITIONS))
+@pytest.mark.parametrize("shape", ["banded", "skewed"])
+def test_dist_spmv_matches_oracle(mesh, kind, shape):
+    # "skewed": entries only in the first quarter of the rows, so three of
+    # four shards hold no entries at all
+    n = 200
+    a, x = banded_csr(n, seed=0, rows=None if shape == "banded" else n // 4)
     pa = pcsr_from_csr(a, mesh)
-    v = np.random.default_rng(1).standard_normal(200).astype(np.float32)
+    part = PARTITIONS[kind](a, mesh)
+    v = np.random.default_rng(1).standard_normal(n).astype(np.float32)
     vsh = shard_vector(jnp.asarray(v), pa, mesh)
-    got = np.asarray(halo_spmv_segtile(hs, vsh, mesh))[:200]
+    got = np.asarray(dist_spmv(part, vsh, mesh))[:n]
     np.testing.assert_allclose(got, x @ v, rtol=1e-5, atol=1e-5)
-    ref = np.asarray(halo_spmv(halo_partition(a, mesh), vsh, mesh))[:200]
-    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
-    # comm volume is the halo-exchange payload, bounded by the all-gather
-    # volume even on this tiny dense-ish fixture (strict O(halo) < O(m)
-    # savings are pinned at scale by test_comm_volume.py)
-    assert hs.comm_entries_per_device <= 200
+    if kind != "pcsr":
+        # the halo payload never exceeds the all-gather volume
+        assert part.comm_entries_per_device <= 4 * (-(-n // 4))
 
 
-def test_halo_segtile_empty_and_skew_shards(mesh):
-    """Shards with zero rows of nnz (and wildly uneven nnz) share one
-    kernel trace: meta is equalized, empty shards run inert tiles."""
-    n = 160
-    x = np.zeros((n, n), np.float32)
-    rng = np.random.default_rng(3)
-    # entries only in the first quarter of the rows -> 6 of 8 shards empty
-    for i in range(n // 4):
-        js = np.clip(i + rng.integers(-9, 10, size=5), 0, n - 1)
-        x[i, js] = rng.standard_normal(js.size)
-    a = csr_from_dense(jnp.asarray(x))
-    hs = halo_partition_segtile(a, mesh)
-    pa = pcsr_from_csr(a, mesh)
-    v = rng.standard_normal(n).astype(np.float32)
-    vsh = shard_vector(jnp.asarray(v), pa, mesh)
-    got = np.asarray(halo_spmv_segtile(hs, vsh, mesh))[:n]
-    np.testing.assert_allclose(got, x @ v, rtol=1e-5, atol=1e-5)
-
-
-def test_cg_through_dist_spmv_fast_path(mesh):
-    """The solvers accept any partitioned type via dist_spmv; CG over the
-    segtile halo path matches CG over PCSR and the dense solve."""
+@pytest.mark.parametrize("kind", sorted(PARTITIONS))
+def test_cg_through_dist_spmv_fast_path(mesh, kind):
+    """The solvers accept any partitioned type via dist_spmv; CG over each
+    matches the dense solve."""
     n = 96
     rng = np.random.default_rng(5)
     x = rng.standard_normal((n, n)).astype(np.float32) * (
@@ -100,8 +82,8 @@ def test_cg_through_dist_spmv_fast_path(mesh):
     pa = pcsr_from_csr(a, mesh)
     b_np = rng.standard_normal(n).astype(np.float32)
     b = shard_vector(jnp.asarray(b_np), pa, mesh)
-    hs = halo_partition_segtile(a, mesh)
-    x_fast = np.asarray(cg_solve(hs, b, mesh, iters=25))[:n]
+    x_fast = np.asarray(cg_solve(PARTITIONS[kind](a, mesh), b, mesh,
+                                 iters=25))[:n]
     np.testing.assert_allclose(
         x_fast, np.linalg.solve(spd.astype(np.float64), b_np), rtol=2e-3,
         atol=2e-3,
@@ -111,7 +93,7 @@ def test_cg_through_dist_spmv_fast_path(mesh):
         dist_spmv(object(), b, mesh)
 
 
-def _random_pbsr_pair(mesh, nb, bsz, density, seed):
+def _random_pbsr_pair(nb, bsz, density, seed):
     rng = np.random.default_rng(seed)
     mats = []
     for _ in range(2):
@@ -126,23 +108,14 @@ def _random_pbsr_pair(mesh, nb, bsz, density, seed):
     return mats
 
 
-@pytest.mark.parametrize("bsz", [
-    pytest.param(8, marks=pytest.mark.slow),  # boundary-bsz breadth
-    32,
-])
-def test_pbsr_smsmm_pallas_matches(mesh, bsz):
-    a, b = _random_pbsr_pair(mesh, nb=16, bsz=bsz, density=0.25, seed=bsz)
+@pytest.mark.parametrize("bsz", [2, 8, 32])
+def test_pbsr_smsmm_matches(mesh, bsz):
+    a, b = _random_pbsr_pair(nb=16, bsz=bsz, density=0.25, seed=bsz)
     pa, pb = pbsr_from_bsr(a, mesh), pbsr_from_bsr(b, mesh)
-    xplan = build_pbsr_smsmm_plan(pa, pb, mesh)
-    c_xla = bsr_todense(pbsr_to_bsr(pbsr_smsmm(pa, pb, mesh, xplan)))
-    pplan = build_pbsr_smsmm_plan_pallas(pa, pb, mesh)
-    c = bsr_todense(pbsr_to_bsr(pbsr_smsmm_pallas(pa, pb, mesh, pplan)))
+    plan = build_pbsr_smsmm_plan(pa, pb, mesh)
+    c = bsr_todense(pbsr_to_bsr(pbsr_smsmm(pa, pb, mesh, plan)))
     oracle = np.asarray(bsr_todense(a)) @ np.asarray(bsr_todense(b))
     np.testing.assert_allclose(np.asarray(c), oracle, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(c), np.asarray(c_xla), rtol=1e-4, atol=1e-4
-    )
-    # values-only exchange: payload bounded by the all-gather volume (equal
-    # on this tiny dense-ish fixture; strict savings pinned in test_pbsr.py)
+    # values-only exchange: payload bounded by the all-gather volume
     tot_blocks = int(np.asarray(pb.indices).size)
-    assert pplan.comm_entries_per_device <= tot_blocks * bsz * bsz
+    assert plan.comm_entries_per_device <= tot_blocks * bsz * bsz

@@ -132,15 +132,14 @@ def test_bell_stats():
 
 
 def test_nnz_roofline_model():
-    """The nnz/s roofline model (VERDICT r4 #6): intrinsic min bytes from
-    the pattern, plan ceiling from max(traffic, issue) floors, and the
-    derived fractions are arithmetically consistent."""
+    """The nnz/s roofline model: intrinsic min bytes from the pattern, the
+    plan ceiling from its traffic, and the derived fractions are
+    arithmetically consistent at a given bandwidth."""
     import jax.numpy as jnp
     import numpy as np
 
     from sparse_tpu import csr_from_dense
     from sparse_tpu.utils.stats import (
-        HBM_CEILING_GBPS,
         blocked_min_bytes,
         csr_min_bytes,
         nnz_roofline,
@@ -156,47 +155,22 @@ def test_nnz_roofline_model():
     assert csr_min_bytes(a, k=8) == 5 * 4 + 3 * 8 * 4 + 4 * 8 * 4
     assert blocked_min_bytes(7, 2, 10, k=1) == 7 * 4 * 4 + 10 * 4 + 10 * 4
 
-    rl = nnz_roofline(5, min_bytes=nb, plan_bytes=4 * nb, seconds=1e-6)
+    bw = 3350.0
+    rl = nnz_roofline(5, min_bytes=nb, hbm_gbps=bw, plan_bytes=4 * nb,
+                      seconds=1e-6)
     # intrinsic ceiling: nnz / (min_bytes / BW)
-    t_intr = nb / (HBM_CEILING_GBPS * 1e9)
+    t_intr = nb / (bw * 1e9)
     np.testing.assert_allclose(rl["ceiling_gnnzps"], 5 / t_intr / 1e9)
     # traffic-bound plan at 4x the intrinsic bytes -> structural 1/4
     np.testing.assert_allclose(rl["structural_frac"], 0.25)
     np.testing.assert_allclose(rl["frac_of_nnz_roofline"], t_intr / 1e-6)
     np.testing.assert_allclose(
         rl["frac_of_plan_ceiling"], 4 * t_intr / 1e-6)
-    # an issue floor above the traffic floor binds instead
-    rl2 = nnz_roofline(5, min_bytes=nb, plan_bytes=4 * nb, issue_s=1e-5,
-                       seconds=2e-5)
-    np.testing.assert_allclose(rl2["plan_ceiling_gnnzps"], 5 / 1e-5 / 1e9)
-    np.testing.assert_allclose(rl2["frac_of_plan_ceiling"], 0.5)
+    # the bandwidth is an argument: half the bandwidth, half the ceiling
+    rl2 = nnz_roofline(5, min_bytes=nb, hbm_gbps=bw / 2)
+    np.testing.assert_allclose(rl2["ceiling_gnnzps"],
+                               rl["ceiling_gnnzps"] / 2)
     # k multiplies effective nnz and the ceilings consistently
-    rl3 = nnz_roofline(5, k=8, min_bytes=nb)
+    rl3 = nnz_roofline(5, k=8, min_bytes=nb, hbm_gbps=bw)
     np.testing.assert_allclose(
-        rl3["ceiling_gnnzps"], 40 / (nb / (HBM_CEILING_GBPS * 1e9)) / 1e9)
-
-
-def test_segtile_plan_roofline_helpers():
-    """segtile_hbm_bytes / segtile_issue_seconds follow the plan's shape."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from sparse_tpu import csr_from_dense
-    from sparse_tpu.ops.pallas_csr import (
-        SEGTILE_NS_PER_EXTRA_CHUNK,
-        SEGTILE_NS_PER_VREG,
-        build_seg_tiles,
-        segtile_hbm_bytes,
-        segtile_issue_seconds,
-    )
-
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal((64, 64)) * (rng.random((64, 64)) < 0.2)
-    a = csr_from_dense(jnp.asarray(x))
-    plan = build_seg_tiles(a, wsub=16)
-    slots = plan.n_tiles * plan.rows * 128
-    nbR = -(-plan.n // plan.rows)
-    assert segtile_hbm_bytes(plan) == slots * 5 + plan.m * 4 + nbR * plan.rows * 4
-    want = plan.n_tiles * (plan.rows // 8) * (
-        SEGTILE_NS_PER_VREG + SEGTILE_NS_PER_EXTRA_CHUNK) * 1e-9
-    np.testing.assert_allclose(segtile_issue_seconds(plan), want)
+        rl3["ceiling_gnnzps"], 40 / (nb / (bw * 1e9)) / 1e9)

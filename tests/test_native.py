@@ -1,6 +1,6 @@
 """Native plan-construction core (sparse_tpu/native): edge cases and
 fallback parity.  The heavier whole-plan equality checks live next to
-their consumers (test_pallas_csr.py, test_spgemm_spmm.py)."""
+their consumers (test_reorder.py, test_spgemm_spmm.py)."""
 
 import numpy as np
 import pytest
@@ -34,25 +34,3 @@ def test_native_library_builds_here():
     # this environment ships g++; the fast path should be live (the NumPy
     # fallback is exercised separately via mock in the consumer tests)
     assert _load() is not None
-
-
-def test_counting_argsort_matches_numpy_stable():
-    from sparse_tpu.native.plansort import counting_argsort
-
-    rng = np.random.default_rng(1)
-    for n, nb in [(0, 4), (1, 1), (1000, 7), (100_000, 1 << 18)]:
-        k = rng.integers(0, nb, n).astype(np.int64)
-        got = counting_argsort(k, nb)
-        want = np.argsort(k, kind="stable")
-        np.testing.assert_array_equal(got, want)
-
-
-def test_counting_argsort_out_of_range_falls_back():
-    # keys outside [0, nbuckets) make the native core refuse; the wrapper
-    # must still return the correct stable order via NumPy
-    from sparse_tpu.native.plansort import counting_argsort
-
-    k = np.array([5, 1, 9, 1], np.int64)
-    np.testing.assert_array_equal(
-        counting_argsort(k, 4), np.argsort(k, kind="stable")
-    )

@@ -1,4 +1,7 @@
-"""Pallas BELL SpMM kernel (interpreter mode on CPU) vs dense oracle."""
+"""Triton blocked-ELL SpMM kernel: interpreter mode on the CPU, compiled on
+the card (``-m gpu``), and ``bell_spmm``'s choice of kernel."""
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -6,311 +9,233 @@ import numpy as np
 import pytest
 
 from sparse_tpu import bsr_from_dense
-from sparse_tpu.formats.bell import bell_from_bsr
-from sparse_tpu.ops.pallas_bell import bell_spmm_pallas
+from sparse_tpu.formats.bell import (
+    BELL,
+    _spmm_route,
+    bell_from_bsr,
+    bell_spmm,
+    bell_spmm_xla,
+)
+from sparse_tpu.ops.pallas_bell import (
+    KERNEL_BSZ,
+    bell_spmm_triton,
+    kernel_eligible,
+)
 
 
-def random_bell(n, bsz, density, seed):
+def random_bell(nb, bsz, density, seed, empty_rows=()):
+    """Random block pattern (some block rows emptied) as BELL + dense."""
     rng = np.random.default_rng(seed)
-    nb = n // bsz
-    mask = np.kron(rng.random((nb, nb)) < density, np.ones((bsz, bsz)))
-    x = (rng.standard_normal((n, n)) * mask).astype(np.float32)
-    return bell_from_bsr(bsr_from_dense(jnp.asarray(x), bsz)), x
-
-
-@pytest.mark.parametrize("n,bsz,k", [(32, 8, 128), (64, 16, 64), (16, 8, 256)])
-def test_pallas_spmm_matches(n, bsz, k):
-    a, xa = random_bell(n, bsz, 0.4, seed=n + k)
-    b = jnp.asarray(
-        np.random.default_rng(k).standard_normal((n, k)).astype(np.float32)
-    )
-    got = bell_spmm_pallas(a, b, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), xa @ np.asarray(b), rtol=2e-5, atol=2e-5
-    )
-
-
-def test_pallas_spmm_padding_inert():
-    # padded window slots (col 0, zero block) must contribute nothing even
-    # though their DMA fetches a real panel
-    n, bsz, k = 24, 8, 128
-    a, xa = random_bell(n, bsz, 0.3, seed=5)
-    assert a.Lb >= 1
-    b = jnp.asarray(
-        np.random.default_rng(5).standard_normal((n, k)).astype(np.float32)
-    )
-    got = bell_spmm_pallas(a, b, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), xa @ np.asarray(b), rtol=2e-5, atol=2e-5
-    )
-
-
-@pytest.mark.parametrize("n,bsz,k", [(32, 8, 128), (64, 16, 64)])
-def test_pallas_spmm_fused_matches(n, bsz, k):
-    from sparse_tpu.ops.pallas_bell import bell_spmm_pallas_fused
-
-    a, xa = random_bell(n, bsz, 0.4, seed=n * 2 + k)
-    b = jnp.asarray(
-        np.random.default_rng(k + 1).standard_normal((n, k)).astype(np.float32)
-    )
-    got = bell_spmm_pallas_fused(a, b, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), xa @ np.asarray(b), rtol=2e-5, atol=2e-5
-    )
-
-
-def banded_bell(nb, bsz, half_band, seed, empty_rows=()):
-    rng = np.random.default_rng(seed)
-    n = nb * bsz
-    mask = np.zeros((nb, nb), bool)
-    for off in range(-half_band, half_band + 1):
-        mask |= np.eye(nb, k=off, dtype=bool)
+    mask = rng.random((nb, nb)) < density
+    mask[np.arange(nb), np.arange(nb)] = True
     for r in empty_rows:
         mask[r] = False
-    x = (rng.standard_normal((n, n)) * np.kron(mask, np.ones((bsz, bsz)))
-         ).astype(np.float32)
+    x = (rng.standard_normal((nb * bsz, nb * bsz))
+         * np.kron(mask, np.ones((bsz, bsz)))).astype(np.float32)
     return bell_from_bsr(bsr_from_dense(jnp.asarray(x), bsz)), x
 
 
-@pytest.mark.parametrize("nb,bsz,hb,rt", [(16, 8, 1, 4), (37, 8, 2, 4),
-                                          (12, 16, 1, 3)])
-def test_pallas_spmm_banded_matches(nb, bsz, hb, rt):
-    from sparse_tpu.ops.pallas_bell import (
-        bell_spmm_pallas_banded,
-        build_banded_plan,
-    )
-
-    a, x = banded_bell(nb, bsz, hb, seed=nb + rt, empty_rows=(nb // 2,))
-    k = 128
-    b = jnp.asarray(
-        np.random.default_rng(rt).standard_normal((nb * bsz, k)).astype(
-            np.float32)
-    )
-    plan = build_banded_plan(a, row_tile=rt)
-    assert plan is not None
-    # clamped windows: every start stays within [0, nb - W]
-    assert int(jnp.max(plan.start)) <= nb - plan.W >= 0 or nb == plan.W
-    got = bell_spmm_pallas_banded(a, b, plan, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), x @ np.asarray(b), rtol=2e-5, atol=2e-4
-    )
-
-
-def test_pallas_spmm_banded_plan_fallbacks():
-    from sparse_tpu.ops.pallas_bell import build_banded_plan
-
-    n, bsz = 64, 8
-    nb = n // bsz
-    # scattered pattern (non-consecutive block columns) -> no plan
-    y = np.zeros((n, n), np.float32)
-    y[:bsz, -bsz:] = 1.0
-    y[:bsz, :bsz] = 1.0
-    a2 = bell_from_bsr(bsr_from_dense(jnp.asarray(y), bsz))
-    assert build_banded_plan(a2, row_tile=2) is None
-    # window cap exceeded -> no plan
-    a3, _ = banded_bell(nb, bsz, 1, seed=1)
-    assert build_banded_plan(a3, row_tile=2, max_window=2) is None
-
-
-def test_banded_kit_spmm_dispatch():
-    from sparse_tpu.formats.bell import bell_spmm
-    from sparse_tpu.ops.pallas_bell import BandedKit, bell_banded_prepare
-
-    a, x = banded_bell(16, 8, 1, seed=3)
-    kit = bell_banded_prepare(a)
-    assert isinstance(kit, BandedKit)
-    b = jnp.asarray(
-        np.random.default_rng(0).standard_normal((128, 128)).astype(np.float32)
-    )
-    # prefer_pallas path is TPU-only; on CPU exercise the kernel directly
-    from sparse_tpu.ops.pallas_bell import bell_spmm_pallas_banded
-
-    got = bell_spmm_pallas_banded(a, b, kit.plan, tiles=kit.tiles,
-                                  interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), x @ np.asarray(b), rtol=2e-5, atol=2e-4
-    )
-
-
-@pytest.mark.parametrize("nb,bsz,hb,rt", [(40, 8, 2, 4), (24, 16, 1, 2)])
-def test_pallas_spmm_banded_super_tiles(nb, bsz, hb, rt):
-    # super-tile grouping (S > 1): one shared operand window per grid step
-    from sparse_tpu.ops.pallas_bell import (
-        bell_spmm_pallas_banded,
-        build_banded_plan,
-    )
-
-    a, x = banded_bell(nb, bsz, hb, seed=nb * 3 + rt)
-    plan = build_banded_plan(a, row_tile=rt)
-    assert plan is not None and plan.S > 1
-    # invariant the kernel slice relies on: 0 <= rel, rel + W <= SW
-    assert int(jnp.min(plan.rel)) >= 0
-    assert int(jnp.max(plan.rel)) + plan.W <= plan.SW
-    assert int(jnp.min(plan.sup)) >= 0
-    assert int(jnp.max(plan.sup)) <= a.nb - plan.SW
-    k = 128
-    b = jnp.asarray(
-        np.random.default_rng(9).standard_normal((nb * bsz, k)).astype(
-            np.float32)
-    )
-    got = bell_spmm_pallas_banded(a, b, plan, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), x @ np.asarray(b), rtol=2e-5, atol=2e-4
-    )
-
-
-def test_pallas_spmm_fused_bf16_stream():
-    from sparse_tpu.ops.pallas_bell import bell_spmm_pallas_fused
-
-    a, xa = random_bell(32, 8, 0.5, seed=77)
-    b = jnp.asarray(
-        np.random.default_rng(7).standard_normal((32, 128)).astype(np.float32)
-    )
-    got = bell_spmm_pallas_fused(a, b, compute_dtype=jnp.bfloat16,
-                                 interpret=True)
-    assert got.dtype == jnp.float32
-    np.testing.assert_allclose(
-        np.asarray(got), xa @ np.asarray(b), rtol=5e-2, atol=5e-2
-    )
-
-
-def test_build_banded_plan_slot_valid_host_path():
-    # slot_valid lets callers skip the device->host block pull; the plan must
-    # be identical to the derived-from-blocks one (incl. empty rows)
-    from sparse_tpu.ops.pallas_bell import build_banded_plan
-
-    a, x = banded_bell(20, 8, 2, seed=5, empty_rows=(7,))
-    blocks_h = np.asarray(a.blocks)
-    sv = np.any(blocks_h != 0, axis=(2, 3))
-    p1 = build_banded_plan(a, row_tile=4)
-    p2 = build_banded_plan(a, row_tile=4, slot_valid=sv)
-    assert p1 is not None and p2 is not None
-    for f in ("offs", "start", "rel", "sup"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(p1, f)), np.asarray(getattr(p2, f))
-        )
-    assert (p1.W, p1.rt, p1.S, p1.SW) == (p2.W, p2.rt, p2.S, p2.SW)
-    with pytest.raises(ValueError):
-        build_banded_plan(a, row_tile=4, slot_valid=sv[:, :1])
-
-
-def test_banded_kernels_lower_for_tpu():
-    # jax.export lowers for the TPU platform without a chip: catches Mosaic
-    # restrictions interpret mode hides (value-level dynamic_slice in the
-    # super-tile kernel failed here before the pl.ds ref-slice fix)
-    from sparse_tpu.ops.pallas_bell import (
-        bell_banded_prepare,
-        bell_spmm_pallas_banded,
-        bell_spmm_pallas_fused,
-    )
-
-    a, _ = banded_bell(40, 32, 2, seed=11)
-    kit = bell_banded_prepare(a, row_tile=5)
-    assert kit is not None and kit.plan.S > 1  # super-tile path
-    b = jnp.asarray(
-        np.random.default_rng(1).standard_normal((a.n, 128)).astype(np.float32)
-    )
-    with jax.enable_x64(False):
-        for fn in (
-            lambda a, b: bell_spmm_pallas_banded(a, b, kit.plan,
-                                                 tiles=kit.tiles),
-            lambda a, b: bell_spmm_pallas_fused(a, b),
-        ):
-            exported = jax.export.export(jax.jit(fn), platforms=["tpu"])(a, b)
-            assert "tpu_custom_call" in exported.mlir_module()
-
-
-# -- transposed-operand banded kernel (small k) --------------------------------
-
-
-@pytest.mark.parametrize("nb,bsz,hb,k", [(16, 32, 1, 32), (24, 16, 2, 64),
-                                         (12, 64, 1, 32)])
-def test_pallas_spmm_banded_t_matches(nb, bsz, hb, k):
-    """C^T = (A @ B)^T with the transposed small-k kernel: matches the
-    dense oracle; rt*bsz forced to a 128 multiple."""
-    from sparse_tpu.ops.pallas_bell import (
-        bell_banded_prepare_t,
-        bell_spmm_pallas_banded_t,
-    )
-
-    a, x = banded_bell(nb, bsz, hb, seed=nb + k)
-    kit = bell_banded_prepare_t(a)
-    assert kit is not None
-    assert (kit.plan.rt * bsz) % 128 == 0
-    rng = np.random.default_rng(3)
-    b = rng.standard_normal((a.n, k)).astype(np.float32)
-    ct = bell_spmm_pallas_banded_t(a, jnp.asarray(b.T), kit, interpret=True)
-    assert ct.shape == (k, a.n)
-    np.testing.assert_allclose(np.asarray(ct).T, x @ b, rtol=2e-4, atol=2e-4)
-
-
-def test_pallas_spmm_banded_t_fallbacks_and_lowering():
-    from sparse_tpu.ops.pallas_bell import (
-        bell_banded_prepare_t,
-        bell_spmm_pallas_banded_t,
-    )
-
-    # bsz=8: the minimal 128-lane tile height is rt=16
-    a8, x8 = banded_bell(16, 8, 1, seed=2)
-    kit8 = bell_banded_prepare_t(a8)
-    assert kit8 is not None and kit8.plan.rt == 16
-    b8 = np.random.default_rng(1).standard_normal((a8.n, 32)).astype(
+def _operand(n, k, seed):
+    return np.random.default_rng(seed).standard_normal((n, k)).astype(
         np.float32)
-    ct8 = bell_spmm_pallas_banded_t(a8, jnp.asarray(b8.T), kit8,
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(ct8).T, x8 @ b8, rtol=2e-4,
-                               atol=2e-4)
-    # non-banded pattern -> None (build_banded_plan rejects)
-    a, x = banded_bell(16, 32, 1, seed=4)
-    kit = bell_banded_prepare_t(a)
-    bt = jnp.asarray(np.random.default_rng(0)
-                     .standard_normal((32, a.n)).astype(np.float32))
-    with jax.enable_x64(False):
-        exported = jax.export.export(
-            jax.jit(lambda a, bt: bell_spmm_pallas_banded_t(a, bt, kit)),
-            platforms=["tpu"],
-        )(a, bt)
-    assert "tpu_custom_call" in exported.mlir_module()
+
+
+def _normwise(got, want):
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("bsz", KERNEL_BSZ)
+@pytest.mark.parametrize("k", [16, 64, 128, 100])
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_triton_kernel_interpret_matches(bsz, k, stream):
+    a, x = random_bell(5, bsz, 0.4, seed=bsz + k, empty_rows=(2,))
+    b = _operand(a.n, k, seed=k)
+    cdt = jnp.bfloat16 if stream == "bf16" else None
+    got = np.asarray(bell_spmm_triton(a, jnp.asarray(b), compute_dtype=cdt,
+                                      interpret=True))
+    assert got.shape == (a.n, k) and got.dtype == np.float32
+    want = x.astype(np.float64) @ b.astype(np.float64)
+    # f32 stream: f32 products, float32 summation order; bf16 stream: 8-bit
+    # mantissas on both operands (~2^-8 relative per product)
+    assert _normwise(got, want) < (1e-5 if stream == "f32" else 1e-2)
+    np.testing.assert_array_equal(got[2 * bsz:3 * bsz], 0.0)  # empty row
+
+
+@pytest.mark.parametrize("bsz", KERNEL_BSZ)
+def test_triton_kernel_padding_slots_inert(bsz):
+    # padding slots point at column 0 with zero blocks: they load a real
+    # panel and must add nothing
+    nb = 4
+    blocks = np.zeros((nb, 3, bsz, bsz), np.float32)
+    cols = np.zeros((nb, 3), np.int32)
+    rng = np.random.default_rng(0)
+    for r in range(nb):
+        blocks[r, 0] = rng.standard_normal((bsz, bsz))
+        cols[r, 0] = (r + 1) % nb
+    a = BELL(cols=jnp.asarray(cols), blocks=jnp.asarray(blocks),
+             n=nb * bsz, bsz=bsz)
+    b = _operand(a.n, 32, seed=1)
+    got = np.asarray(bell_spmm_triton(a, jnp.asarray(b), interpret=True))
+    want = np.asarray(bell_spmm_xla(a, jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _loss(spmm, a, w, cdt=None):
+    """``sum(w * spmm(A, b))`` as a function of (A's blocks, b)."""
+    return lambda blocks, b: jnp.sum(w * spmm(
+        BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz), b,
+        compute_dtype=cdt))
+
+
+@pytest.mark.parametrize("bsz", KERNEL_BSZ)
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_triton_kernel_interpret_grad_matches_xla(bsz, stream):
+    # pallas_call has no transpose rule: reverse mode goes through the
+    # kernel's custom JVP, whose tangent is the XLA formulation
+    a, x = random_bell(4, bsz, 0.5, seed=bsz, empty_rows=(1,))
+    b = jnp.asarray(_operand(a.n, 16, seed=7))
+    w = jnp.asarray(_operand(a.n, 16, seed=8))
+    cdt = jnp.bfloat16 if stream == "bf16" else None
+    kernel = partial(bell_spmm_triton, interpret=True)
+    got = jax.grad(_loss(kernel, a, w, cdt), argnums=(0, 1))(a.blocks, b)
+    want = jax.grad(_loss(bell_spmm_xla, a, w, cdt), argnums=(0, 1))(
+        a.blocks, b)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        np.testing.assert_allclose(np.asarray(g), np.asarray(r), rtol=1e-6,
+                                   atol=1e-6)
+    if stream == "f32":  # d/db sum(w * A b) = A^T w
+        np.testing.assert_allclose(np.asarray(got[1]),
+                                   x.T.astype(np.float64) @ np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wrt", ["blocks", "b", "both"])
+def test_triton_kernel_interpret_jvp_matches_xla(wrt):
+    a, _ = random_bell(4, 16, 0.5, seed=11)
+    b = jnp.asarray(_operand(a.n, 32, seed=12))
+    rng = np.random.default_rng(13)
+    dblocks = (jnp.asarray(rng.standard_normal(a.blocks.shape), jnp.float32)
+               if wrt != "b" else jnp.zeros_like(a.blocks))
+    db = (jnp.asarray(rng.standard_normal(b.shape), jnp.float32)
+          if wrt != "blocks" else jnp.zeros_like(b))
+
+    def run(spmm):
+        def f(blocks, b):
+            return spmm(BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz), b)
+        if wrt == "blocks":
+            return jax.jvp(lambda blk: f(blk, b), (a.blocks,), (dblocks,))
+        if wrt == "b":
+            return jax.jvp(lambda bb: f(a.blocks, bb), (b,), (db,))
+        return jax.jvp(f, (a.blocks, b), (dblocks, db))
+
+    (y, t) = run(partial(bell_spmm_triton, interpret=True))
+    (y_ref, t_ref) = run(bell_spmm_xla)
+    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(t), np.asarray(t_ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_triton_kernel_rejects_out_of_range():
+    a, _ = random_bell(4, 8, 0.5, seed=0)
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        bell_spmm_triton(a, jnp.ones((a.n, 16), jnp.float32), interpret=True)
     with pytest.raises(ValueError, match="operand shape"):
-        bell_spmm_pallas_banded_t(a, bt[:, :-1], kit)
+        bell_spmm_triton(a, jnp.ones((a.n + 1, 16), jnp.float32))
 
 
-def test_bell_spmm_dispatches_banded_t_kit():
-    """bell_spmm(plan=BandedKitT) takes the small-k transposed kernel and
-    returns the standard (n, k) layout."""
-    from unittest import mock
+@pytest.mark.parametrize(
+    "platform,bsz,dtype,want",
+    [("gpu", 32, jnp.float32, "triton"), ("gpu", 16, jnp.bfloat16, "triton"),
+     ("gpu", 8, jnp.float32, "xla"), ("gpu", 64, jnp.float32, "xla"),
+     ("gpu", 32, jnp.float64, "xla"), ("cpu", 32, jnp.float32, "xla"),
+     ("cpu", 16, jnp.bfloat16, "xla")],
+)
+def test_bell_spmm_route_by_platform_and_bsz(platform, bsz, dtype, want):
+    a, _ = random_bell(2, bsz, 1.0, seed=3)
+    assert _spmm_route(a, 128, dtype, platform) == want
+    assert kernel_eligible(a, 128, dtype) == (
+        bsz in KERNEL_BSZ and dtype in (jnp.float32, jnp.bfloat16))
 
-    import sparse_tpu.formats.bell as fb
+
+@pytest.mark.parametrize("platform,want", [("gpu", True), ("cpu", False),
+                                           ("rocm", False)])
+def test_capability_table(platform, want):
+    from sparse_tpu.backend import has_kernel
+
+    assert has_kernel("bell_spmm", platform) is want
+    assert not has_kernel("no_such_kernel", platform)
+
+
+def test_bell_spmm_on_cpu_takes_xla(monkeypatch):
     import sparse_tpu.ops.pallas_bell as pb
 
-    a, x = banded_bell(24, 32, 1, seed=5)
-    kit = pb.bell_banded_prepare_t(a)
-    assert kit is not None
-    orig = pb.bell_spmm_pallas_banded_t
-    spy = mock.Mock(side_effect=lambda a_, bt, k_, **kw: orig(
-        a_, bt, k_, interpret=True, **kw))
-    rng = np.random.default_rng(0)
-    b = rng.standard_normal((a.n, 32)).astype(np.float32)
-    with mock.patch.object(pb, "bell_spmm_pallas_banded_t", spy):
-        out = fb.bell_spmm(a, jnp.asarray(b), prefer_pallas=True, plan=kit)
-    assert spy.called
-    np.testing.assert_allclose(np.asarray(out), x @ b, rtol=2e-4, atol=2e-4)
+    def boom(*a, **k):
+        raise AssertionError("kernel called off the GPU")
+
+    monkeypatch.setattr(pb, "bell_spmm_triton", boom)
+    a, x = random_bell(4, 16, 0.5, seed=4)
+    b = _operand(a.n, 16, seed=4)
+    got = np.asarray(bell_spmm(a, jnp.asarray(b)))
+    np.testing.assert_allclose(got, x @ b, rtol=2e-5, atol=2e-5)
 
 
-def test_bell_banded_refresh_matches_rebuild():
-    """Kit value refresh (one device densify) equals a full re-prepare."""
-    from sparse_tpu.formats.bell import BELL
-    from sparse_tpu.ops.pallas_bell import (
-        bell_banded_prepare,
-        bell_banded_refresh,
-    )
+# -- on the card ---------------------------------------------------------------
 
-    a, _ = banded_bell(20, 8, 1, seed=3)
-    kit = bell_banded_prepare(a)
-    if kit is None:
-        pytest.skip("pattern not banded on this fixture")
-    a2 = BELL(cols=a.cols, blocks=a.blocks * 2.0, n=a.n, bsz=a.bsz)
-    kit2 = bell_banded_refresh(kit, a2)
-    ref = bell_banded_prepare(a2)
-    np.testing.assert_array_equal(np.asarray(kit2.tiles),
-                                  np.asarray(ref.tiles))
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz", KERNEL_BSZ)
+@pytest.mark.parametrize("k", [16, 128, 100])
+def test_triton_kernel_compiled_f32_is_full_precision(gpu, bsz, k):
+    """Compiled kernel at f32: the error against an f64 reference is at
+    float32 level (TF32 products would leave ~1e-3)."""
+    a, x = random_bell(64, bsz, 0.08, seed=bsz * k)
+    b = _operand(a.n, k, seed=k)
+    got = np.asarray(jax.jit(bell_spmm)(a, jnp.asarray(b)))
+    assert _spmm_route(a, k, jnp.float32) == "triton"
+    want = x.astype(np.float64) @ b.astype(np.float64)
+    assert _normwise(got, want) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz", KERNEL_BSZ)
+def test_triton_kernel_compiled_bf16_matches_xla(gpu, bsz):
+    a, _ = random_bell(64, bsz, 0.08, seed=bsz)
+    b = jnp.asarray(_operand(a.n, 64, seed=2))
+    got = np.asarray(bell_spmm_triton(a, b, compute_dtype=jnp.bfloat16))
+    want = np.asarray(bell_spmm_xla(a, b, compute_dtype=jnp.bfloat16))
+    assert _normwise(got, want) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz", KERNEL_BSZ)
+def test_bell_spmm_compiled_grad_matches_xla(gpu, bsz):
+    """``jax.grad`` through the routed ``bell_spmm`` (the kernel forward,
+    XLA einsums backward) against the XLA path and ``A^T w``."""
+    a, x = random_bell(64, bsz, 0.08, seed=bsz + 1)
+    assert _spmm_route(a, 64, jnp.float32) == "triton"
+    b = jnp.asarray(_operand(a.n, 64, seed=3))
+    w = jnp.asarray(_operand(a.n, 64, seed=4))
+    got = jax.jit(jax.grad(_loss(bell_spmm, a, w), argnums=(0, 1)))(
+        a.blocks, b)
+    want = jax.jit(jax.grad(_loss(bell_spmm_xla, a, w), argnums=(0, 1)))(
+        a.blocks, b)
+    for g, r in zip(got, want):
+        assert _normwise(np.asarray(g, np.float64),
+                         np.asarray(r, np.float64)) < 1e-6
+    ref = x.T.astype(np.float64) @ np.asarray(w, np.float64)
+    assert _normwise(np.asarray(got[1], np.float64), ref) < 1e-5
+
+
+@pytest.mark.gpu
+def test_triton_kernel_compiled_tf32x3_preset(gpu):
+    """The 3-pass TF32 preset lowers on the Triton route and stays close to
+    float32 (a single TF32 pass would leave ~1e-3)."""
+    a, x = random_bell(64, 32, 0.08, seed=5)
+    b = _operand(a.n, 128, seed=5)
+    got = np.asarray(bell_spmm_triton(
+        a, jnp.asarray(b),
+        precision=jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3))
+    want = x.astype(np.float64) @ b.astype(np.float64)
+    assert _normwise(got, want) < 1e-5

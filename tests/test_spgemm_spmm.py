@@ -90,7 +90,7 @@ def test_spgemm_cancellation_keeps_stored_zero():
 
 
 # ---------------------------------------------------------------------------
-# MXU (dense-accumulator, sort-free) SpGEMM core
+# dense-accumulator (method="mxu", sort-free) SpGEMM core
 # ---------------------------------------------------------------------------
 from sparse_tpu.ops.spgemm import spgemm_mxu_csr_csr, spgemm_mxu_nse  # noqa: E402
 
@@ -171,7 +171,7 @@ def test_spgemm_mxu_capacity_truncation_row_major():
 
 
 def test_spgemm_auto_dispatch():
-    # floats within budget -> MXU (exact-capacity result); ints -> ESC
+    # floats within budget -> dense core (exact-capacity result); ints -> ESC
     rng = np.random.default_rng(6)
     da = sp.random(20, 20, density=0.2, random_state=rng, dtype=np.float32)
     A = st.csr_from_dense(jnp.asarray(da.toarray()))
@@ -306,7 +306,7 @@ def test_spgemm_plan_native_matches_numpy_path():
             )
 
 
-# -- block-routed SpGEMM dispatch (docs/performance.md "Block SpGEMM") --------
+# -- block-routed SpGEMM dispatch ---------------------------------------------
 
 
 def _block_dense(n, bsz, block_density, seed):
@@ -324,7 +324,7 @@ def _block_dense(n, bsz, block_density, seed):
 
 
 def test_spgemm_route_picks_block_for_dense_blocks():
-    """auto routing: MXU while the dense footprint fits; the block path for
+    """auto routing: the dense core while the dense footprint fits; the block path for
     big clustered (fully-dense-block) patterns; ESC for uniform random."""
     from sparse_tpu.ops.spgemm import _spgemm_route
     from sparse_tpu.utils.stats import csr_block_fill, detect_block_size
@@ -334,9 +334,9 @@ def test_spgemm_route_picks_block_for_dense_blocks():
     a = st.csr_from_dense(jnp.asarray(x))
     assert csr_block_fill(a, 2) == 1.0
     assert detect_block_size(a)[0] == 2
-    # small: MXU wins regardless of structure
+    # small: the dense core wins regardless of structure
     assert _spgemm_route(a, a)[0] == "mxu"
-    # shrink the MXU budget to emulate a matrix too big to densify, and the
+    # shrink the dense budget to emulate a matrix too big to densify, and the
     # routing floor to emulate production nnz
     import sparse_tpu.ops.spgemm as sg
 
@@ -386,32 +386,52 @@ def test_spgemm_route_bsz32_and_partial_fill_boundary():
         sg._BLOCK_ROUTE_MIN_NNZ = old
 
 
-def test_spgemm_block_pallas_apply_matches_xla():
-    """The Pallas DMA-slab apply inside the block route (bsz >= 8 on TPU;
-    forced + interpret here) produces the XLA block apply's stored
-    structure and values exactly; the block route's ESC equivalence is
-    pinned by test_spgemm_block_method_matches_esc (reference semantics:
+@pytest.mark.parametrize("bsz", [2, 4, 8, 16, 32])
+def test_spgemm_block_route_xla_apply_and_grad(bsz):
+    """The block route (re-block -> ``bsr_smsmm_prepare`` ->
+    ``bsr_smsmm_apply`` -> scalar CSR) matches the dense product at every
+    block size, and JAX's own gradient of the apply matches the dense
+    gradient on A's stored blocks (reference semantics:
     compressed.fut:268-331)."""
-    from sparse_tpu.ops.spgemm import _spgemm_block, spgemm
+    import jax
 
-    n, bsz = 64, 8
-    x = _block_dense(n, bsz, 0.3, seed=11)
-    y = _block_dense(n, bsz, 0.3, seed=12)
+    from sparse_tpu.ops.spgemm import _spgemm_block
+
+    n = 4 * bsz
+    x = _block_dense(n, bsz, 0.4, seed=bsz)
+    y = _block_dense(n, bsz, 0.4, seed=bsz + 1)
     a = st.csr_from_dense(jnp.asarray(x))
     b = st.csr_from_dense(jnp.asarray(y))
-    c_esc = _spgemm_block(a, b, bsz, compact=True, use_pallas=False)
-    c_blk = _spgemm_block(a, b, bsz, compact=True, use_pallas=True,
-                          interpret=True)
-    np.testing.assert_array_equal(np.asarray(c_blk.indptr),
-                                  np.asarray(c_esc.indptr))
-    np.testing.assert_array_equal(np.asarray(c_blk.indices),
-                                  np.asarray(c_esc.indices))
-    np.testing.assert_allclose(np.asarray(c_blk.data),
-                               np.asarray(c_esc.data), rtol=1e-9, atol=1e-9)
+    c = _spgemm_block(a, b, bsz, compact=True)
+    np.testing.assert_allclose(dense(c), x @ y, rtol=1e-10, atol=1e-10)
+
+    ab, bb = st.csr_to_bsr(a, bsz), st.csr_to_bsr(b, bsz)
+    plan = st.bsr_smsmm_prepare(ab, bb)
+    w = np.random.default_rng(0).standard_normal((n, n))
+
+    def loss(blocks):
+        cb = st.bsr_smsmm_apply(plan, st.BSR(indices=ab.indices,
+                                             blocks=blocks, n=ab.n,
+                                             bsz=bsz), bb)
+        return jnp.sum(st.bsr_todense(cb) * w)
+
+    g = jax.grad(loss)(ab.blocks)
+    # d/dA sum(W * (A @ B)) = W @ B^T, read back at A's stored blocks
+    gd = w @ y.T
+    nb = n // bsz
+    idx = np.asarray(ab.indices)
+    for slot, key in enumerate(idx):
+        if key >= nb * nb:
+            continue
+        r, col = divmod(int(key), nb)
+        np.testing.assert_allclose(
+            np.asarray(g[slot]),
+            gd[r * bsz:(r + 1) * bsz, col * bsz:(col + 1) * bsz],
+            rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.slow  # breadth: XLA-apply block route also covered by
-# test_bsr's routing round-trip; the Pallas-apply variant runs by default
+@pytest.mark.slow  # breadth: the block route is also covered by
+# test_spgemm_block_route_xla_apply_and_grad and test_bsr's round-trip
 def test_spgemm_block_method_matches_esc():
     """The block route produces the ESC core's exact stored structure and
     values (up to float summation order) under its full-fill precondition
@@ -435,39 +455,3 @@ def test_spgemm_block_method_matches_esc():
     with pytest.raises(ValueError, match="square"):
         rect = st.csr_from_dense(jnp.asarray(x[: n - 4]))
         spgemm(rect, b, method="block")
-
-
-def test_smvm_block_route_detection():
-    """csr_smvm_auto's BELL-route detector: dense big blocks qualify,
-    uniform random and small blocks do not."""
-    from sparse_tpu.ops.pallas_csr import _smvm_block_bsz
-
-    n, bsz = 128, 8
-    x = _block_dense(n, bsz, 0.2, seed=7)
-    a = st.csr_from_dense(jnp.asarray(x))
-    assert _smvm_block_bsz(a) == 8
-    # detection is host-side: probe the other directions through the CSR
-    # structure directly (no extra device constructions/compiles)
-    rng = np.random.default_rng(8)
-    u = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.05)
-    import scipy.sparse as _sp
-
-    us = _sp.csr_matrix(u)
-    from sparse_tpu import CSR
-
-    au = CSR(data=jnp.asarray(us.data.astype(np.float32)),
-             indices=jnp.asarray(us.indices.astype(np.int32)),
-             indptr=jnp.asarray(us.indptr.astype(np.int32)), shape=(n, n))
-    assert _smvm_block_bsz(au) == 0
-    # dense 2x2 blocks are below the granule floor -> scalar paths keep it
-    x2s = _sp.csr_matrix(_block_dense(n, 2, 0.05, seed=9))
-    a2 = CSR(data=jnp.asarray(x2s.data.astype(np.float32)),
-             indices=jnp.asarray(x2s.indices.astype(np.int32)),
-             indptr=jnp.asarray(x2s.indptr.astype(np.int32)), shape=(n, n))
-    assert _smvm_block_bsz(a2) == 0
-    # rectangular CSR with dense square blocks: BELL/BSR storage is
-    # square-only, so the detector must decline (it used to crash in
-    # bsr_from_coo; advisor round-4 medium finding)
-    xr = _block_dense(n, bsz, 0.2, seed=7)[:, : n // 2]
-    ar = st.csr_from_dense(jnp.asarray(np.ascontiguousarray(xr)))
-    assert _smvm_block_bsz(ar) == 0
